@@ -6,13 +6,26 @@ Phases, each of which must pass or the script exits non-zero:
   1. card    — print the card's name and power limit (nvidia-smi), build
                the Hopper kernels from nanoranger_torch/csrc (timed)
   2. kernels — hold every kernel against its plain PyTorch version on the
-               card, at the shapes the 5p10XGEX main path gives it; one
-               JSON line per kernel with its time, the plain version's
-               time, the shape and the mismatch count
+               card, at the shapes the main paths give it: the 5p10XGEX
+               shapes of the K562 run, then the other modes' (chain DP on
+               the V and C panels, the adapter scan at every mode's window
+               and pattern with windows cut from TCR3 and slideseq reads,
+               the one-vs-all DP at core 32 against the full slideseq list,
+               the banded rescore at band 33, the full-row rescore at the
+               four pad geometries); one JSON line per kernel and shape
+               with its time, the plain version's time and the mismatches
   3. main    — run nanoranger_torch.pipeline.run_pipeline("5p10XGEX") on
                the K562 sample against the full 737,280-row whitelist,
                hold the artifacts to the K562 golden counts, and check
-               that every kernel was launched by that run
+               that every kernel of that path was launched by the run
+  4. modes   — the same for 5p10XTCR on TCR3 (full 737K whitelist, clone
+               tables included), 3pXCR_slideseq on slideseq_XCR (full
+               17,753-row list) and RTX on TCR3 (subreads and clonotypes,
+               no barcodes), launch counts reset before each run
+  5. rescan  — the full-row rescorer on the real pairs of the two barcoded
+               runs of phase 4: every accepted candidate against the full
+               padded row of its barcode must give the banded rescorer's
+               score, validity and position, and the UMI of the table
 Then it prints the kernel summary line, the card line, and as the last
 line {"ok": true, "device": {...}}.
 
@@ -22,6 +35,7 @@ without the package beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import json
 import os
@@ -36,12 +50,25 @@ SAMPLE = os.path.join(DATA, "samples",
                       "K562_Kasumi1_BCRABL1_RUNX1_RUNX1T1.fastq.gz")
 PANEL = os.path.join(DATA, "RUNX1_RUNX1T1_ABL1_BCR.fa")
 WHITELIST = os.path.join(DATA, "737K-august-2016.txt.gz")
+TCR3 = os.path.join(DATA, "samples", "TCR3.fastq.gz")
+V_PANEL = os.path.join(DATA, "TR_V_human.fa")
+SLIDESEQ = os.path.join(DATA, "samples", "slideseq_XCR.fastq.gz")
+C_PANEL = os.path.join(DATA, "XR_C_mouse.fa")
+SLIDESEQ_WL = os.path.join(DATA, "slideseq.matched.barcodes.tsv.gz")
 
-# K562 entry of tests/goldens/real_samples.json (n_tagged_bam and the
-# genome stage are outside this slice)
+# entries of tests/goldens/real_samples.json (n_tagged_bam and the genome
+# stage are outside the port so far)
 GOLDEN = {"n_subreads": 3054, "subread_bases": 877020, "n_candidates": 3054,
           "n_accepted": 2677, "n_distinct_bc": 338, "umi_len_mode": 10,
           "n_dedup_rows": 338}
+GOLDEN_TCR3 = {"n_subreads": 2802, "subread_bases": 344490,
+               "n_candidates": 2066, "n_accepted": 1703,
+               "n_distinct_bc": 1474, "umi_len_mode": 12, "n_clones": 105,
+               "n_clone_bcumi": 574}
+GOLDEN_SLIDESEQ = {"n_subreads": 5088, "subread_bases": 1335410,
+                   "n_candidates": 1704, "n_accepted": 1207,
+                   "n_distinct_bc": 701, "umi_len_mode": 9,
+                   "n_eds_rows": 1714}
 
 # published peaks of one H100 SXM: HBM bandwidth, and the float32 rate
 # outside the tensor cores, used as the ceiling of 32-bit scalar ops
@@ -57,6 +84,8 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                "nanoranger_tpu/ops/whitelist_verify.py:163"),
     "sw": ("nanoranger_torch/csrc/sw_banded.cu",
            "nanoranger_tpu/ops/pallas_sw.py:148"),
+    "sw_full": ("nanoranger_torch/csrc/sw_full.cu",
+                "nanoranger_tpu/ops/pallas_sw.py:55"),
 }
 
 
@@ -87,10 +116,27 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def plain_ms_of(fn):
+    """(result, milliseconds) of one call of a plain version on the card."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.time() - t0) * 1e3
+
+
 def bound(n_bytes: float, n_ops: float):
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
     t_o = n_ops / SCALAR_OPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def compare(got, ref):
+    """(mismatch count, max abs difference) over paired integer tensors."""
+    mism = int(sum((a != b).sum() for a, b in zip(got, ref)))
+    err = float(max((a.int() - b.int()).abs().max() for a, b in zip(got, ref)))
+    return mism, err
 
 
 # --------------------------------------------------------------------------
@@ -112,17 +158,14 @@ def check_chain(dev, index, batch):
     t, q, seg, valid = ch["t"], ch["q"], ch["seg"], ch["valid"]
     args = (t, q, seg, valid, K, MAX_GAP, BANDWIDTH)
     fk, pk, rk = chain_dp(*args)
-    t0 = time.time()
-    fp, pp, rp = chain_dp_plain(*args)
-    torch.cuda.synchronize()
-    plain_ms = (time.time() - t0) * 1e3
+    (fp, pp, rp), plain_ms = plain_ms_of(lambda: chain_dp_plain(*args))
     ms = cuda_ms(lambda: chain_dp(*args), 5)
     v = valid
+    n_valid = int(v.sum())
     err = (fk[v] - fp[v]).abs()
     rel = err / fp[v].abs().clamp(min=1.0)
     mism = int((pk != pp).sum() + (rk != rp).sum() + (rel > 1e-5).sum())
     B, A = t.shape
-    n_valid = int(v.sum())
     n_bytes = B * A * (4 * 3 + 1 + 4 * 3)
     n_ops = n_valid * 64 * 16      # 64 window slots, ~16 flops each
     return {"shape": [B, A], "valid_anchors": n_valid, "ms": ms,
@@ -131,79 +174,100 @@ def check_chain(dev, index, batch):
             "bound": bound(n_bytes, n_ops)}, ch
 
 
-def check_ed(dev, index, batch, ch):
+def flank_windows(dev, spec, index, batch, ch=None):
+    """The flank windows (R, hi - lo) and their lengths that `spec`'s
+    adapter scan sees for one read batch aligned to `index`."""
     import numpy as np
     import torch
 
-    from nanoranger_torch import chemistry
-    from nanoranger_torch.align.aligner import extract_records
-    from nanoranger_torch.io.encode import encode
-    from nanoranger_torch.ops.edit_distance import hw_locate, hw_locate_plain
+    from nanoranger_torch.align.aligner import PanelAligner, extract_records
     from nanoranger_torch.ops.extend import extend_records_host
-    from nanoranger_torch.stages.decon import _scan_flanks
-    spec = chemistry.get("5p10XGEX")
+    from nanoranger_torch.stages.decon import _gather_flanks
+    if ch is None:
+        ch = PanelAligner(index, dev)._chain(batch.codes, batch.lengths)
     rec = extract_records(ch, index)
     extend_records_host(rec, index, batch.codes, np.asarray(batch.lengths),
                         dev)
     tt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     f = spec.flank
-    window, wlen = _scan_flanks(
+    return _gather_flanks(
         tt(batch.codes), tt(np.asarray(batch.lengths, np.int32)),
         tt(rec.read_idx.astype(np.int32)), tt(rec.strand.astype(np.int32)),
         tt(rec.qstart.astype(np.int32)), tt(rec.qend.astype(np.int32)),
-        0 if f.anchor == "qstart" else 1, f.lo, f.hi,
-        tt(encode(spec.scan.pattern)), spec.scan.k, True, True)[:2]
-    out = {}
-    settings = {
-        # the 5p10XGEX scan: 51-mer with 26 N, wildcard, last optimal end
-        "wildcard_last": (spec.scan.pattern, spec.scan.k, True, True),
-        # no wildcard, first optimal end: the 14-mer partial read 1
-        "plain_first": ("CGCTCTTCCGATCT", 2, False, False),
-    }
-    for name, (pat, k, wc, last) in settings.items():
-        p = tt(encode(pat))
-        args = (p, window, wlen, k, wc, last)
-        got = hw_locate(*args)
-        t0 = time.time()
-        ref = hw_locate_plain(*args)
-        torch.cuda.synchronize()
-        plain_ms = (time.time() - t0) * 1e3
-        ms = cuda_ms(lambda: hw_locate(*args), 20)
-        mism = int(sum((a != b).sum() for a, b in zip(got, ref)))
-        R, W = window.shape
-        n_hit = int((ref[0] >= 0).sum())
-        cells = (R + n_hit) * len(pat) * (W + 1)
-        out[name] = {"shape": [R, W], "m": len(pat), "hits": n_hit,
-                     "ms": ms, "plain_ms": plain_ms, "mismatches": mism,
-                     "max_abs_err": float(max(
-                         (a - b).abs().max() for a, b in zip(got, ref))),
-                     "bound": bound(R * W + 16 * R + len(pat), cells * 6)}
-    return out
+        0 if f.anchor == "qstart" else 1, f.lo, f.hi)[:2]
 
 
-def synthetic_candidates(rng, barcodes, n):
-    """BC-UMI candidates around whitelist barcodes with 2-4 random edits:
-    the rows the staged match sends to the exhaustive DP."""
-    seqs = []
+def check_ed_setting(dev, pattern, texts, lengths, k, wildcard, pick_last):
+    """K2+K3 against the plain scan on one set of window rows."""
+    import numpy as np
+    import torch
+
+    from nanoranger_torch.io.encode import encode
+    from nanoranger_torch.ops.edit_distance import hw_locate, hw_locate_plain
+    p = torch.from_numpy(np.ascontiguousarray(encode(pattern))).to(dev)
+    args = (p, texts, lengths, k, wildcard, pick_last)
+    got = hw_locate(*args)
+    ref, plain_ms = plain_ms_of(lambda: hw_locate_plain(*args))
+    ms = cuda_ms(lambda: hw_locate(*args), 20)
+    mism, err = compare(got, ref)
+    R, W = texts.shape
+    n_hit = int((ref[0] >= 0).sum())
+    cells = (R + n_hit) * len(pattern) * (W + 1)
+    return {"shape": [R, W], "m": len(pattern), "k": k,
+            "wildcard": wildcard, "pick_last": pick_last, "hits": n_hit,
+            "ms": ms, "plain_ms": plain_ms, "mismatches": mism,
+            "max_abs_err": err,
+            "bound": bound(R * W + 16 * R + len(pattern), cells * 6)}
+
+
+def check_ed_mode(dev, spec, window, wlen):
+    """K2+K3 at `spec`'s scan setting on real flank windows; the windowed
+    modes scan the flattened sub-windows, as the decon stage does."""
+    from nanoranger_torch.stages.decon import _sub_windows
+    sc = spec.scan
+    texts, lengths = window, wlen
+    if sc.window_size is not None:
+        texts, lengths, _ = _sub_windows(window, wlen, sc.window_size,
+                                         sc.window_stride,
+                                         sc.windows_plus_one)
+    return check_ed_setting(dev, sc.pattern, texts, lengths, sc.k,
+                            sc.n_wildcard, sc.pick_last)
+
+
+def structured_candidates(rng, barcodes, n, spec, edits=(0, 4)):
+    """(candidates, the barcode each was made from) laid out as `spec`'s
+    BC-UMI slice: lead-in, barcode with a random number of edits from the
+    half-open range `edits` (around the linker for slideseq rows), UMI,
+    tail. Two or more edits are the rows the staged match sends to the
+    exhaustive DP."""
+    from nanoranger_torch.chemistry import SLIDESEQ_LINKER
+    seqs, truth = [], []
     for _ in range(n):
-        bc = list(barcodes[rng.integers(len(barcodes))])
-        for _ in range(int(rng.integers(2, 5))):
+        true_bc = str(barcodes[rng.integers(len(barcodes))])
+        bc = list(true_bc)
+        for _ in range(int(rng.integers(*edits))):
             i = int(rng.integers(len(bc)))
             op = rng.integers(3)
             if op == 0:
                 bc[i] = "ACGT"[rng.integers(4)]
-            elif op == 1:
+            elif op == 1 and len(bc) > 10:
                 del bc[i]
             else:
                 bc.insert(i, "ACGT"[rng.integers(4)])
-        umi = "".join("ACGT"[x] for x in rng.integers(0, 4, 10))
-        tail = "TTTCTTATATG"[:int(rng.integers(0, 12))]
-        seqs.append("CGCTCTTCCGATCT" + "".join(bc) + umi + tail)
-    return seqs
+        bc = "".join(bc)
+        core = (bc[:8] + SLIDESEQ_LINKER + bc[8:] if spec.slideseq_linker
+                else bc)
+        acgt = lambda k: "".join("ACGT"[x] for x in rng.integers(0, 4, k))
+        s = (acgt(spec.bc_query_offset + int(rng.integers(3))) + core
+             + acgt(spec.umi_len) + acgt(int(rng.integers(0, 8))))
+        seqs.append(s[:96])
+        truth.append(true_bc)
+    return seqs, truth
 
 
-def check_verify_sw(dev, barcodes, spec):
-    import numpy as np
+def check_verify_sw(dev, barcodes, spec, seqs):
+    """K4 on 256 candidates and their reverse complements against every
+    whitelist row, then K5 on the winners' bands."""
     import torch
 
     from nanoranger_torch.io.encode import encode_batch
@@ -211,56 +275,82 @@ def check_verify_sw(dev, barcodes, spec):
     from nanoranger_torch.ops.whitelist_verify import (verify_all,
                                                        verify_all_plain)
     from nanoranger_torch.stages.barcode import build_tables, revcomp_rows
-    rng = np.random.default_rng(20261016)
     tables, ref_len = build_tables(barcodes, spec)
     coreT = torch.from_numpy(tables["coreT"]).to(dev)
-    q_np, ql_np = encode_batch(synthetic_candidates(rng, barcodes, 256),
-                               max_len=96)
+    q_np, ql_np = encode_batch(seqs, max_len=96)
     qf = torch.from_numpy(q_np).to(dev)
     qlf = torch.from_numpy(ql_np).to(dev)
-    qq = torch.cat([qf, revcomp_rows(qf, qlf)]).contiguous()   # (512, 96)
+    n = qf.shape[0]
+    qq = torch.cat([qf, revcomp_rows(qf, qlf)]).contiguous()   # (2n, 96)
     qql = torch.cat([qlf, qlf])
     R = len(barcodes)
     args = (qq, qql, coreT, R, spec.pad_left, spec.pad_right)
-    best, idx, ties = verify_all(*args)
+    got = verify_all(*args)
     ms = cuda_ms(lambda: verify_all(*args), 3)
-    t0 = time.time()
-    ref = verify_all_plain(*args, r_chunk=32768)
-    torch.cuda.synchronize()
-    plain_ms = (time.time() - t0) * 1e3
-    got = (best, idx, ties)
-    mism = int(sum((a != b).sum() for a, b in zip(got, ref)))
+    ref, plain_ms = plain_ms_of(
+        lambda: verify_all_plain(*args, r_chunk=32768))
+    mism, err = compare(got, ref)
     m = coreT.shape[0]
     cells = int(qql.sum()) * m * R
     verify = {"shape": [int(qq.shape[0]), int(qq.shape[1]), m, R],
               "ms": ms, "plain_ms": plain_ms, "mismatches": mism,
-              "max_abs_err": float(max((a - b).abs().max()
-                                       for a, b in zip(got, ref))),
+              "max_abs_err": err,
               "bound": bound(m * R + qq.numel() + 4 * qq.shape[0] * 4,
                              cells * 6)}
 
     band = torch.from_numpy(tables["band"]).to(dev)[
-        idx[:256].clamp(0, R - 1).long()].contiguous()
+        got[1][:n].clamp(0, R - 1).long()].contiguous()
     sargs = (qf, qlf, band, ref_len, spec.pad_left, spec.umi_ref_offset)
     got = sw_end2end_banded(*sargs)
-    t0 = time.time()
-    ref = sw_banded_plain(*sargs)
-    torch.cuda.synchronize()
-    plain_ms = (time.time() - t0) * 1e3
+    ref, plain_ms = plain_ms_of(lambda: sw_banded_plain(*sargs))
     sms = cuda_ms(lambda: sw_end2end_banded(*sargs), 20)
+    mism, err = compare(got, ref)
     nb = band.shape[1]
     sw = {"shape": [int(qf.shape[0]), int(qf.shape[1]), nb], "ms": sms,
-          "plain_ms": plain_ms,
-          "mismatches": int(sum((a != b).sum() for a, b in zip(got, ref))),
-          "max_abs_err": float(max((a.int() - b.int()).abs().max()
-                                   for a, b in zip(got, ref))),
+          "plain_ms": plain_ms, "mismatches": mism, "max_abs_err": err,
           "bound": bound(qf.numel() + band.numel() + 16 * qf.shape[0],
                          int(qlf.sum()) * nb * 2 * 6)}
     return verify, sw
 
 
+def check_sw_full(dev, barcodes, spec, rng):
+    """K6 on 256 candidates, each against the full padded row of the
+    barcode it was made from: against its plain version, and against the
+    banded kernel on the same pairs."""
+    import numpy as np
+    import torch
+
+    from nanoranger_torch.io import whitelist
+    from nanoranger_torch.io.encode import encode_batch
+    from nanoranger_torch.ops.sw import sw_end2end, sw_end2end_plain
+    seqs, truth = structured_candidates(rng, barcodes, 256, spec)
+    q_np, ql_np = encode_batch(seqs, max_len=96)
+    refs_np, ref_len = whitelist.padded_refs(np.asarray(truth), spec)
+    P, Lr = refs_np.shape
+    q = torch.from_numpy(q_np).to(dev)
+    ql = torch.from_numpy(ql_np).to(dev)
+    refs = torch.from_numpy(np.ascontiguousarray(refs_np)).to(dev)
+    rl = torch.full((P,), Lr, dtype=torch.int32, device=dev)
+    c = spec.umi_ref_offset
+    args = (q, ql, refs, rl, c)
+    got = sw_end2end(*args)
+    ref, plain_ms = plain_ms_of(lambda: sw_end2end_plain(*args))
+    ms = cuda_ms(lambda: sw_end2end(*args), 20)
+    mism, err = compare(got, ref)
+    banded = sw_end2end(*args, pad_left=spec.pad_left)
+    mism_banded, _ = compare(got, banded)
+    # both passes over (qlen + 1) rows x Lr columns, ~8 scalar ops a cell
+    cells = int((ql + 1).sum()) * Lr * 2
+    return {"shape": [P, int(q.shape[1]), Lr], "c": c,
+            "valid": int(got[2].sum()), "ms": ms, "plain_ms": plain_ms,
+            "mismatches": mism + mism_banded, "vs_banded": mism_banded,
+            "max_abs_err": err,
+            "bound": bound(q.numel() + refs.numel() + 8 * P + 12 * P,
+                           cells * 8)}
+
+
 # --------------------------------------------------------------------------
-# phase 3: the main path
+# phases 3 and 4: the main paths
 
 def count_fastq(path):
     n = tot = 0
@@ -272,12 +362,19 @@ def count_fastq(path):
     return n, tot
 
 
-def collect(outdir, s):
+def collect(outdir, s, mode):
     """The golden counts of an outdir (tools/gen_real_goldens.py)."""
     import pandas as pd
     g = {}
+    kind = "VDJ" if mode == "3pXCR_slideseq" else "deconcat"
     g["n_subreads"], g["subread_bases"] = count_fastq(
-        f"{outdir}/{s}_deconcat.fastq.gz")
+        f"{outdir}/{s}_{kind}.fastq.gz")
+    if mode == "RTX":
+        g["n_clone_rows"] = int(len(pd.read_csv(
+            f"{outdir}/{s}_clones.txt.gz", sep="\t")))
+        g["n_cloneID_rows"] = int(len(pd.read_csv(
+            f"{outdir}/{s}_cloneID.txt.gz", sep="\t")))
+        return g
     df = pd.read_csv(f"{outdir}/{s}_assignments.csv.gz",
                      keep_default_na=False)
     g["n_candidates"] = int(len(df))
@@ -286,8 +383,122 @@ def collect(outdir, s):
     g["n_distinct_bc"] = int(acc.bc.nunique())
     g["umi_len_mode"] = (int(acc.umi.str.len().mode()[0]) if len(acc)
                          else 0)
-    g["n_dedup_rows"] = int(len(pd.read_csv(f"{outdir}/{s}_bcumi_dedup.csv")))
+    if mode == "5p10XGEX":
+        g["n_dedup_rows"] = int(len(pd.read_csv(
+            f"{outdir}/{s}_bcumi_dedup.csv")))
+    if mode == "5p10XTCR":
+        g["n_clones"] = int(len(pd.read_csv(
+            f"{outdir}/{s}_clones_filtered.csv")))
+        g["n_clone_bcumi"] = int(len(pd.read_csv(
+            f"{outdir}/{s}_clone_bcumi.csv.gz")))
+    if mode == "3pXCR_slideseq":
+        g["n_eds_rows"] = int(len(pd.read_csv(
+            f"{outdir}/{s}_eds_names.csv.gz")))
     return g
+
+
+def run_mode(name, mode, infile, panel, wl, out, card, golden, expect):
+    """One run of run_pipeline on the card with the launch counts set to 0
+    just before and read just after. Returns (launches, failure or None)."""
+    import torch
+
+    from nanoranger_torch import kernels
+    from nanoranger_torch.pipeline import run_pipeline
+    from nanoranger_torch.stages import barcode
+    verify_rows = []          # candidate rows (C) of each one-vs-all launch
+    verify_all = barcode.verify_all
+
+    def recording_verify_all(qq, *a, **kw):
+        verify_rows.append(int(qq.shape[0]))
+        return verify_all(qq, *a, **kw)
+
+    barcode.verify_all = recording_verify_all
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.time()
+        run_pipeline(mode, infile, out, "t", trns_ref=panel,
+                     genome_ref="/nonexistent", barcodes=wl, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(kernels.launches)
+    finally:
+        barcode.verify_all = verify_all
+    got = collect(out, "t", mode)
+    with open(os.path.join(out, "t_runstats.json")) as f:
+        stages = json.load(f)["stages"]
+    n_reads = stages[0]["reads"]
+    emit({"phase": "main", "run": name, "mode": mode, "card": card,
+          "wall_s": round(wall, 3), "reads": n_reads,
+          "reads_per_s": round(n_reads / wall, 1), "launches": launches,
+          "verify_rows_per_launch": verify_rows, "counts": got,
+          "stages": [{k: s[k] for k in ("stage", "seconds", "whitelist_s")
+                      if k in s} for s in stages]})
+    bad = {k: (got.get(k), v) for k, v in golden.items() if got.get(k) != v}
+    if bad:
+        return launches, (f"run {name} differs from its golden "
+                          f"(got, want): {bad}")
+    if min(got.values()) <= 0:
+        return launches, f"run {name} left an empty table: {got}"
+    idle = [k for k in expect if launches[k] <= 0]
+    if idle:
+        return launches, f"run {name} never launched {idle}"
+    return launches, None
+
+
+# --------------------------------------------------------------------------
+# phase 5: the full-row rescorer on a run's real pairs
+
+def rescan_real_pairs(outdir, s, spec, device):
+    """Every accepted row of {s}_assignments.csv.gz, candidate against the
+    full padded row of its barcode: ops.sw.sw_end2end without pad_left (the
+    full-row route) against with it (the banded route), and the UMI cut at
+    the full-row position against the table's. Returns the pair count and
+    the counts of disagreements."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from nanoranger_torch.io import whitelist
+    from nanoranger_torch.io.encode import encode_batch
+    from nanoranger_torch.io.fasta import iter_fasta
+    from nanoranger_torch.ops.sw import sw_end2end
+    df = pd.read_csv(f"{outdir}/{s}_assignments.csv.gz",
+                     keep_default_na=False,
+                     dtype={"name": str, "bc": str, "umi": str})
+    cands = list(iter_fasta(f"{outdir}/{s}_BCUMI.fasta.gz"))
+    if [n for n, _ in cands] != df.name.tolist():
+        raise RuntimeError("assignments and BCUMI candidates differ in order")
+    rows = np.where(df.status.to_numpy() == 0)[0]
+    seqs = [cands[i][1][:96] for i in rows]
+    bs = spec.barcode
+    q_np, ql_np = encode_batch(seqs, max_len=96)
+    refs_np, _ = whitelist.padded_refs(df.bc.to_numpy()[rows], bs)
+    P, Lr = refs_np.shape
+    dev = torch.device(device)
+    q = torch.from_numpy(q_np).to(dev)
+    ql = torch.from_numpy(ql_np).to(dev)
+    refs = torch.from_numpy(np.ascontiguousarray(refs_np)).to(dev)
+    rl = torch.full((P,), Lr, dtype=torch.int32, device=dev)
+    c = bs.umi_ref_offset
+    fs, fq, fv = (x.cpu().numpy() for x in sw_end2end(q, ql, refs, rl, c))
+    bsc, bq, bv = (x.cpu().numpy() for x in sw_end2end(
+        q, ql, refs, rl, c, pad_left=bs.pad_left))
+    umis = [sq[p:p + bs.umi_len] if p >= 0 else ""
+            for sq, p in zip(seqs, fq.tolist())]
+    return {"pairs": int(P), "ref_len": int(Lr),
+            "score_mismatches": int((fs != bsc).sum()),
+            "valid_mismatches": int((fv != bv).sum()),
+            "qpos_mismatches": int((fq[fv] != bq[fv]).sum()),
+            "invalid": int((~fv).sum()),
+            "umi_mismatches": int(sum(
+                a != b for a, b in zip(umis, df.umi.to_numpy()[rows])))}
+
+
+def rescan_failed(r) -> bool:
+    return r["pairs"] == 0 or any(
+        r[k] for k in ("score_mismatches", "valid_mismatches",
+                       "qpos_mismatches", "invalid", "umi_mismatches"))
 
 
 def main() -> int:
@@ -306,11 +517,12 @@ def main() -> int:
               "(nanoranger_torch/ and data/ beside it)", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    import numpy as np
+
     from nanoranger_torch import kernels
     from nanoranger_torch.align.index import PanelIndex
     from nanoranger_torch.chemistry import get as get_spec
     from nanoranger_torch.io import fastq, whitelist
-    from nanoranger_torch.pipeline import run_pipeline
 
     dev = torch.device("cuda")
     card = card_line()
@@ -320,24 +532,64 @@ def main() -> int:
     t0 = time.time()
     kernels.build_all()
     emit({"phase": "build", "seconds": round(time.time() - t0, 2),
+          "libraries": sorted(kernels.SOURCES),
           "dir": os.path.relpath(kernels.build_dir(), HERE)})
 
-    # ---- phase 2
+    # ---- phase 2, the 5p10XGEX shapes of the K562 run
     index = PanelIndex.from_fasta(PANEL)
     batch = next(fastq.iter_batches(SAMPLE, 2048, max_len=4096))
     barcodes = whitelist.load(WHITELIST)
     spec = get_spec("5p10XGEX")
+    rng = np.random.default_rng(20261016)
     res = {}
     res["chain"], ch = check_chain(dev, index, batch)
-    ed = check_ed(dev, index, batch, ch)
-    res["verify"], res["sw"] = check_verify_sw(dev, barcodes, spec.barcode)
-    rows = [("chain", res["chain"])] + \
-        [(f"ed_{k}", v) for k, v in ed.items()] + \
-        [("verify", res["verify"]), ("sw", res["sw"])]
+    window, wlen = flank_windows(dev, spec, index, batch, ch)
+    res["ed"] = check_ed_mode(dev, spec, window, wlen)
+    # no wildcard, first optimal end: the 14-mer partial read 1
+    ed_first = check_ed_setting(dev, "CGCTCTTCCGATCT", window, wlen, 2,
+                                False, False)
+    seqs, _ = structured_candidates(rng, barcodes, 256, spec.barcode,
+                                    edits=(2, 5))
+    res["verify"], res["sw"] = check_verify_sw(dev, barcodes, spec.barcode,
+                                               seqs)
+    rows = [("chain", res["chain"]), ("ed_wildcard_last", res["ed"]),
+            ("ed_plain_first", ed_first), ("verify", res["verify"]),
+            ("sw", res["sw"])]
+
+    # ---- phase 2, the other modes' shapes
+    v_index = PanelIndex.from_fasta(V_PANEL)
+    c_index = PanelIndex.from_fasta(C_PANEL)
+    tcr_batch = next(fastq.iter_batches(TCR3, 2048, max_len=4096))
+    ss_batch = next(fastq.iter_batches(SLIDESEQ, 2048, max_len=4096))
+    ss_barcodes = whitelist.load(SLIDESEQ_WL)
+    r, _ = check_chain(dev, v_index, tcr_batch)
+    rows.append(("chain_TR_V_human", r))
+    r, _ = check_chain(dev, c_index, ss_batch)
+    rows.append(("chain_XR_C_mouse", r))
+    w, wl_ = flank_windows(dev, get_spec("5p10XTCR"), v_index, tcr_batch)
+    rows.append(("ed_5p10XTCR", check_ed_mode(dev, get_spec("5p10XTCR"),
+                                              w, wl_)))
+    for mode in ("3p10XTCR", "3pXCR_slideseq", "3p10XGEX", "3p10XTCR_nuc"):
+        # slideseq reads stand in for the 3' modes without a bundled
+        # sample: their flanks give the scan real windows of its width
+        w, wl_ = flank_windows(dev, get_spec(mode), c_index, ss_batch)
+        rows.append((f"ed_{mode}", check_ed_mode(dev, get_spec(mode),
+                                                 w, wl_)))
+    ss_spec = get_spec("3pXCR_slideseq").barcode
+    seqs, _ = structured_candidates(rng, ss_barcodes, 256, ss_spec)
+    r_v, r_s = check_verify_sw(dev, ss_barcodes, ss_spec, seqs)
+    rows += [("verify_m32_slideseq", r_v), ("sw_band33", r_s)]
+    for mode, bcs in (("5p10XGEX", barcodes), ("3pXCR_slideseq", ss_barcodes),
+                      ("3p10XTCR_nuc", barcodes), ("3p10XGEX", barcodes)):
+        r = check_sw_full(dev, bcs, get_spec(mode).barcode, rng)
+        rows.append((f"sw_full_Lr{r['shape'][2]}", r))
+        res.setdefault("sw_full", r)            # the 86-wide 5' row
+
     failed = []
     for name, r in rows:
         emit({"phase": "kernel", "kernel": name, "card": card,
-              "kernel_ms": r["ms"],
+              "kernel_ms": r["ms"], "bound_ms": r["bound"][0],
+              "bound_by": r["bound"][1],
               **{k: v for k, v in r.items() if k not in ("bound", "ms")}})
         if r["mismatches"]:
             failed.append(name)
@@ -345,37 +597,43 @@ def main() -> int:
         print(f"chip_smoke: kernels disagree with their plain versions: "
               f"{failed}", file=sys.stderr)
         return 1
-    res["ed"] = ed["wildcard_last"]
 
-    # ---- phase 3
-    with tempfile.TemporaryDirectory(prefix="nr_smoke_") as out:
-        torch.cuda.synchronize()
+    # ---- phases 3 to 5
+    by_run = {}
+    with contextlib.ExitStack() as stack:
+        tmp = lambda: stack.enter_context(
+            tempfile.TemporaryDirectory(prefix="nr_smoke_"))
+        outs = {n: tmp() for n in ("k562", "tcr3", "slideseq", "rtx")}
+        four = ("chain", "ed", "verify", "sw")
+        runs = [
+            ("k562", "5p10XGEX", SAMPLE, PANEL, WHITELIST, GOLDEN, four),
+            ("tcr3", "5p10XTCR", TCR3, V_PANEL, WHITELIST, GOLDEN_TCR3, four),
+            ("slideseq", "3pXCR_slideseq", SLIDESEQ, C_PANEL, SLIDESEQ_WL,
+             GOLDEN_SLIDESEQ, four),
+            # RTX has no adapter scan and no match: the chain DP alone
+            ("rtx", "RTX", TCR3, V_PANEL, None, {}, ("chain",)),
+        ]
+        for name, mode, infile, panel, wl, golden, expect in runs:
+            by_run[name], why = run_mode(name, mode, infile, panel, wl,
+                                         outs[name], card, golden, expect)
+            if why:
+                print(f"chip_smoke: {why}", file=sys.stderr)
+                return 1
+
         kernels.reset_launches()
-        t0 = time.time()
-        run_pipeline("5p10XGEX", SAMPLE, out, "t", trns_ref=PANEL,
-                     genome_ref="/nonexistent", barcodes=WHITELIST,
-                     device="cuda")
+        for name, mode in (("tcr3", "5p10XTCR"),
+                           ("slideseq", "3pXCR_slideseq")):
+            r = rescan_real_pairs(outs[name], "t", get_spec(mode), "cuda")
+            emit({"phase": "rescan", "run": name, "card": card, **r})
+            if rescan_failed(r):
+                print(f"chip_smoke: the full-row rescorer disagrees with "
+                      f"the banded one or the table on run {name}: {r}",
+                      file=sys.stderr)
+                return 1
         torch.cuda.synchronize()
-        wall = time.time() - t0
-        launches = dict(kernels.launches)
-        got = collect(out, "t")
-        with open(os.path.join(out, "t_runstats.json")) as f:
-            stages = json.load(f)["stages"]
-    n_reads = stages[0]["reads"]
-    emit({"phase": "main", "card": card, "wall_s": round(wall, 3),
-          "reads": n_reads, "reads_per_s": round(n_reads / wall, 1),
-          "launches": launches, "counts": got,
-          "stages": [{k: s[k] for k in ("stage", "seconds", "whitelist_s")
-                      if k in s}
-                     for s in stages]})
-    bad = {k: (got.get(k), v) for k, v in GOLDEN.items() if got.get(k) != v}
-    if bad:
-        print(f"chip_smoke: main path differs from the K562 golden "
-              f"(got, want): {bad}", file=sys.stderr)
-        return 1
-    idle = [k for k, n in launches.items() if n <= 0]
-    if idle:
-        print(f"chip_smoke: main path never launched {idle}",
+        by_run["rescan"] = dict(kernels.launches)
+    if by_run["rescan"]["sw_full"] <= 0:
+        print("chip_smoke: the rescan never launched sw_full",
               file=sys.stderr)
         return 1
 
@@ -383,11 +641,14 @@ def main() -> int:
     for name, (src, replaces) in KERNELS.items():
         r = res[name]
         b_ms, b_by = r["bound"]
-        summary.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": None})
+        summary.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": sum(v[name] for v in by_run.values()),
+            "launches_by_run": {k: v[name] for k, v in by_run.items()},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "shape": r["shape"]})
     emit({"kernels": summary})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,8 +12,12 @@ Layout mirrors the JAX package:
   align       — minimizer index + seed-chain aligner
   ops         — the kernels' wrappers with their plain versions, and the
                 kernel-free DP ops
-  stages      — decon, barcode matching, dedup/counting
-  pipeline    — CLI entry point (5p10XGEX so far)
+  stages      — decon, barcode matching, dedup/counting, clone joins
+  vdj         — native clonotyper (V alignment on the device, CDR3 calls,
+                clone assembly and exports)
+  runtime     — host C++ banded aligner (built by g++ at first use)
+  pipeline    — CLI entry point, all seven modes (no tagged BAM, no
+                sharding yet)
   convert     — carry the JAX package's index/whitelist arrays over
 """
 

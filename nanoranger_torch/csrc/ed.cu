@@ -7,15 +7,17 @@
 // hw_locate_plain in nanoranger_torch/ops/edit_distance.py.
 //
 // What bounds it: per row the work is m dependent DP rows of W+1 cells
-// (m = 51, W = 100 on the main path); the inputs are ~100 bytes a row, so
-// the card is bound by the dependent row chain, not by bytes. One warp
-// owns one row: lane l holds columns 4l+1..4l+4 (W <= 128) in registers,
-// the diagonal neighbour comes from the lane to the left by one shuffle,
-// and the horizontal moves (cost exactly 1) collapse to a prefix-min of
-// t[j] - j, done within the lane and then by a 5-step warp scan. The text
-// row is staged in shared memory so the reverse pass reads it backwards
-// from the chosen end without building reversed windows; rows without a
-// hit skip the reverse pass.
+// (m = 18..54, W = 40..270 over the seven modes); the inputs are a few
+// hundred bytes a row, so the card is bound by the dependent row chain, not
+// by bytes. One warp owns one row: lane l holds columns CPL*l+1..CPL*l+CPL
+// in registers, the diagonal neighbour comes from the lane to the left by
+// one shuffle, and the horizontal moves (cost exactly 1) collapse to a
+// prefix-min of t[j] - j, done within the lane and then by a 5-step warp
+// scan. CPL is a template parameter chosen from the window width (4, 8, 12
+// or 16 columns a lane: W <= 128, 256, 384, 512), so a narrow window pays
+// for no column it does not have. The text row is staged in shared memory
+// so the reverse pass reads it backwards from the chosen end without
+// building reversed windows; rows without a hit skip the reverse pass.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -23,9 +25,8 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int CPL = 4;        // columns per lane
-constexpr int WMAX = 32 * CPL;
 constexpr int WARPS = 4;      // rows per block
+constexpr int WLIMIT = 512;   // widest window: 16 columns per lane
 constexpr int BIG = 1 << 20;
 constexpr int N_CODE = 4;
 constexpr int PAD_CODE = 5;
@@ -38,6 +39,7 @@ __device__ __forceinline__ int cost(int p, int tc, int wildcard) {
 
 // row[u] = D[i-1][j] on entry, D[i][j] on exit, j = CPL*lane + 1 + u;
 // D[i-1][0] = i-1 and D[i][0] = i in both modes.
+template <int CPL>
 __device__ __forceinline__ void row_update(int (&row)[CPL],
                                            const int (&tc)[CPL], int p, int i,
                                            int wildcard, int lane) {
@@ -77,6 +79,7 @@ __device__ __forceinline__ int warp_max(int v) {
     return v;
 }
 
+template <int CPL>
 __global__ void hw_locate_kernel(const int8_t* __restrict__ pattern, int m,
                                  const int8_t* __restrict__ texts,
                                  const int* __restrict__ lengths, int R, int W,
@@ -84,6 +87,7 @@ __global__ void hw_locate_kernel(const int8_t* __restrict__ pattern, int m,
                                  int* __restrict__ dist_out,
                                  int* __restrict__ start_out,
                                  int* __restrict__ end_out) {
+    constexpr int WMAX = 32 * CPL;
     __shared__ int8_t pat[64];
     __shared__ int8_t txt[WARPS][WMAX];
     const int warp = threadIdx.x >> 5;
@@ -104,7 +108,7 @@ __global__ void hw_locate_kernel(const int8_t* __restrict__ pattern, int m,
         tc[u] = txt[warp][CPL * lane + u];
         row[u] = 0;                               // HW: D[0][j] = 0
     }
-    for (int i = 1; i <= m; ++i) row_update(row, tc, pat[i - 1], i, wildcard, lane);
+    for (int i = 1; i <= m; ++i) row_update<CPL>(row, tc, pat[i - 1], i, wildcard, lane);
 
     int score[CPL];
 #pragma unroll
@@ -138,7 +142,7 @@ __global__ void hw_locate_kernel(const int8_t* __restrict__ pattern, int m,
             row[u] = x + 1;                       // SHW: D[0][j] = j
         }
         for (int i = 1; i <= m; ++i)
-            row_update(row, tc, pat[m - i], i, wildcard, lane);
+            row_update<CPL>(row, tc, pat[m - i], i, wildcard, lane);
         int xm = -1;
 #pragma unroll
         for (int u = 0; u < CPL; ++u) {
@@ -162,10 +166,18 @@ extern "C" int hw_locate(const void* pattern, const void* texts,
                          void* end, int m, int R, int W, int k, int wildcard,
                          int pick_last, void* stream) {
     if (R == 0) return 0;
-    if (W > WMAX || m > 64 || m < 1) return (int)cudaErrorInvalidValue;
+    if (W < 1 || W > WLIMIT || m > 64 || m < 1)
+        return (int)cudaErrorInvalidValue;
     const int blocks = (R + WARPS - 1) / WARPS;
-    hw_locate_kernel<<<blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
-        (const int8_t*)pattern, m, (const int8_t*)texts, (const int*)lengths,
-        R, W, k, wildcard, pick_last, (int*)dist, (int*)start, (int*)end);
+#define NR_ED_LAUNCH(cpl)                                                    \
+    hw_locate_kernel<cpl><<<blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(  \
+        (const int8_t*)pattern, m, (const int8_t*)texts,                     \
+        (const int*)lengths, R, W, k, wildcard, pick_last, (int*)dist,       \
+        (int*)start, (int*)end)
+    if (W <= 128) NR_ED_LAUNCH(4);
+    else if (W <= 256) NR_ED_LAUNCH(8);
+    else if (W <= 384) NR_ED_LAUNCH(12);
+    else NR_ED_LAUNCH(16);
+#undef NR_ED_LAUNCH
     return (int)cudaGetLastError();
 }

@@ -39,6 +39,7 @@ SOURCES = {
     "ed": ("ed.cu", []),
     "verify": ("verify.cu", []),
     "sw": ("sw_banded.cu", []),
+    "sw_full": ("sw_full.cu", []),
 }
 
 launches = {name: 0 for name in SOURCES}

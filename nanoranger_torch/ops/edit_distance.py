@@ -29,7 +29,7 @@ from ..io.encode import N as N_CODE
 from ..io.encode import PAD as PAD_CODE
 
 BIG = 1 << 20
-MAX_KERNEL_WIDTH = 128     # csrc/ed.cu: 4 columns per lane of one warp
+MAX_KERNEL_WIDTH = 512     # csrc/ed.cu: up to 16 columns per lane of one warp
 
 
 def _match_mask(p_char: int, t_chars, wildcard: bool):
@@ -111,9 +111,10 @@ def hw_locate(pattern, texts, lengths, k: int, wildcard: bool = False,
                                pick_last)
     R, W = texts.shape
     m = int(pattern.shape[0])
-    if W > MAX_KERNEL_WIDTH or not 1 <= m <= 64:
-        raise ValueError(f"hw_locate kernel takes W <= {MAX_KERNEL_WIDTH} "
-                         f"and 1 <= m <= 64, got W={W}, m={m}")
+    if not 1 <= W <= MAX_KERNEL_WIDTH or not 1 <= m <= 64:
+        raise ValueError(f"hw_locate kernel takes 1 <= W <= "
+                         f"{MAX_KERNEL_WIDTH} and 1 <= m <= 64, got W={W}, "
+                         f"m={m}")
     kernels.check(pattern, "pattern", torch.int8, (m,))
     kernels.check(texts, "texts", torch.int8, (R, W))
     kernels.check(lengths, "lengths", torch.int32, (R,))

@@ -1,19 +1,30 @@
-"""Pipeline CLI of the PyTorch/CUDA port: the 5p10XGEX streamed path.
+"""Pipeline CLI of the PyTorch/CUDA port: all seven modes, streamed.
 
-Counterpart of the JAX package's pipeline.py, flag-compatible with it (and
-with the reference pipeline.py) plus --device. This slice runs mode
-5p10XGEX without a genome reference: fastq -> minimizer sketch -> anchor
-lookup and sort -> chain DP -> record extraction -> end extension ->
-adapter scan -> BC-UMI slice -> staged whitelist match (exact tiers,
-one-vs-all DP, banded UMI rescore) -> verdicts -> dedup artifacts. The
-artifacts are byte-identical to the JAX package's (after gunzip; pdfs and
-run statistics aside):
+Counterpart of the JAX package's pipeline.py (its unfused streamed path),
+flag-compatible with it (and with the reference pipeline.py) plus
+--device. Every mode runs fastq -> minimizer sketch -> anchor lookup and
+sort -> chain DP -> record extraction -> end extension -> adapter scan
+(whole flank or sliding sub-windows) -> subread and BC-UMI slices; the
+barcoded modes go on to the staged whitelist match (exact tiers where the
+whitelist has them, one-vs-all DP, banded UMI rescore) and their
+mode-specific tables; the clone modes run the native clonotyper over the
+subreads. The tagged-BAM genome stage of 5p10XGEX and sharding are not part
+of the package yet and raise. The artifacts are byte-identical to the JAX
+package's (after gunzip; pdfs and run statistics aside):
 
-  {sample}_deconcat.fastq.gz        subreads
-  {sample}_BCUMI.fasta.gz           barcode candidates
-  {sample}_assignments.csv.gz       per-candidate match (+ .meta.json)
-  {sample}_barcode_scores.csv/.pdf  score histogram
-  {sample}_bcumi_dedup.csv, _knee.pdf
+  {sample}_deconcat.fastq.gz / _VDJ.fastq.gz     subreads
+  {sample}_BCUMI.fasta.gz                        barcode candidates
+  {sample}_eds.csv / _eds_names.csv.gz / _polyA.fasta.gz
+  {sample}_assignments.csv.gz                    per-candidate match (+ .meta.json)
+  {sample}_barcode_scores.csv/.pdf, _knee*.pdf
+  {sample}_bcumi_dedup.csv
+  {sample}_bc_read_count.csv, _bc_count.json, _quads.json.gz, _gex.mtx.gz (+sidecars)
+  {sample}_clones.txt.gz, _cloneID.txt.gz, _clones_filtered.csv,
+  {sample}_cloneID_filtered.csv.gz, _clone_bcumi.csv.gz
+
+MiXCR stays an external boundary tool: when its exports
+(_clones.txt.gz/_cloneID.txt.gz) are present in the outdir the clone joins
+use them; otherwise the native clonotyper (vdj/) writes compatible ones.
 
 Entry points run on CUDA unless the caller passes device="cpu"
 (`--device cpu`); without a card the default raises.
@@ -28,6 +39,7 @@ Entry points run on CUDA unless the caller passes device="cpu"
 from __future__ import annotations
 
 import argparse
+import gzip
 import hashlib
 import json
 import os
@@ -45,6 +57,7 @@ from .io.candidate_store import CandidateStore
 from .io.encode import decode, encode_batch
 from .io.fasta import FastaWriter, iter_fasta
 from .ops.extend import extend_records_host
+from .stages import clones as clone_stage
 from .stages import counting
 from .stages.barcode import ACCEPT, BAD_UMI, LOW_AS, BarcodeMatcher
 from .stages.decon import run_decon
@@ -57,6 +70,12 @@ DATA_DIR = os.environ.get(
 # (trns_ref, genome_ref, barcodes) defaults — reference pipeline.py
 MODE_DEFAULTS = {
     "5p10XGEX": ("panel_MT_trns.fa", "MT_chr.fa", "737K-august-2016.txt.gz"),
+    "5p10XTCR": ("TR_V_human.fa", None, "737K-august-2016.txt.gz"),
+    "RTX": ("TR_V_human.fa", None, None),
+    "3pXCR_slideseq": ("XR_C_mouse.fa", None, "slideseq.matched.barcodes.tsv.gz"),
+    "3p10XTCR": ("TRab_C_mouse.fa", None, "slideseq.matched.barcodes.tsv.gz"),
+    "3p10XTCR_nuc": ("TR_V_human.fa", None, "3M-february-2018.txt.gz"),
+    "3p10XGEX": ("panel_MT_trns.fa", None, "3M-february-2018.txt.gz"),
 }
 
 MATCH_LQ = 96      # candidate width of the barcode match
@@ -109,8 +128,9 @@ class Telemetry:
 
 class DeconRun:
     """Streamed align+decon over an input fastq, accumulating BC-UMI
-    candidates and writing the subread/BCUMI artifacts, batch by batch in
-    input order (the JAX package's unfused path).
+    candidates and the per-mode statistics and writing the subread/BCUMI
+    artifacts, batch by batch in input order (the JAX package's unfused
+    path).
 
     Resume: when the stage artifacts already exist (and force=False), the
     BC-UMI candidates are reloaded from _BCUMI.fasta.gz instead of
@@ -121,16 +141,31 @@ class DeconRun:
                  batch_size=2048, max_len=4096, force=False):
         self.spec = spec
         t0 = time.time()
-        self.sub_path = f"{outdir}/{sample}_deconcat.fastq.gz"
+        sub_kind = "VDJ" if spec.name in (
+            "3pXCR_slideseq", "3p10XTCR", "3p10XTCR_nuc") else "deconcat"
+        self.sub_path = f"{outdir}/{sample}_{sub_kind}.fastq.gz"
         self.bcumi_path = f"{outdir}/{sample}_BCUMI.fasta.gz"
         # spill-backed candidate store: bounded resident memory however
         # many reads stream through
         self.cands = CandidateStore()
+        self.eds_rows: list = []
+        self.raw_counts: dict = {}
+        self.polyA: list = []
         self.resumed = False
-        if not force and all(os.path.isfile(p)
-                             for p in (self.sub_path, self.bcumi_path)):
+        # resume requires the stats artifacts too: a crash between the
+        # decon writers closing and write_eds() would otherwise leave the
+        # eds/polyA stats missing for good without --force
+        need = [self.sub_path, self.bcumi_path] + \
+            self.eds_artifacts(outdir, sample)
+        rc_path = f"{outdir}/{sample}_bc_read_count.csv"
+        if spec.name == "3p10XGEX":
+            need.append(rc_path)
+        if not force and all(os.path.isfile(p) for p in need):
             for nm, sq in iter_fasta(self.bcumi_path):
                 self.cands.append(nm, sq)
+            if spec.name == "3p10XGEX":
+                rc = pd.read_csv(rc_path, index_col=0)
+                self.raw_counts = dict(zip(rc.index, rc.iloc[:, 0]))
             self.resumed = True
             self.n_reads = self.n_sub = -1
             log(f"resume: decon artifacts present, loaded "
@@ -161,6 +196,10 @@ class DeconRun:
                 for nm, sq in zip(out.bcumi_names, out.bcumi_seqs):
                     fbc.write(nm, sq)
                     self.cands.append(nm, sq)
+                self.eds_rows.extend(out.eds_rows)
+                self.polyA.extend(out.polyA)
+                for k, v in out.raw_bc_counts.items():
+                    self.raw_counts[k] = self.raw_counts.get(k, 0) + v
                 n_reads += len(batch)
                 n_sub += len(out.sub_names)
         self.n_reads = n_reads
@@ -168,6 +207,38 @@ class DeconRun:
         log(f"align+decon: {n_reads} reads → {n_sub} subreads, "
             f"{len(self.cands)} BC-UMI candidates "
             f"({time.time() - t0:.1f}s)")
+
+    def eds_artifacts(self, outdir, sample) -> list:
+        """Mode-specific stats artifacts write_eds produces (resume set)."""
+        n = self.spec.name
+        if n in ("5p10XTCR", "3p10XTCR"):
+            return [f"{outdir}/{sample}_eds.csv"]
+        if n == "3pXCR_slideseq":
+            return [f"{outdir}/{sample}_eds_names.csv.gz",
+                    f"{outdir}/{sample}_polyA.fasta.gz"]
+        return []
+
+    def write_eds(self, outdir, sample):
+        if self.resumed:
+            return   # stats artifacts were written by the original run
+        if self.spec.name == "5p10XTCR":
+            _atomic_to_csv(pd.DataFrame(np.array(self.eds_rows, dtype=object)),
+                           f"{outdir}/{sample}_eds.csv")
+        elif self.spec.name == "3p10XTCR":
+            v, c = np.unique(np.asarray(self.eds_rows), return_counts=True)
+            df = pd.DataFrame({0: v, 1: c}).sort_values(1, ascending=False)
+            _atomic_to_csv(df, f"{outdir}/{sample}_eds.csv")
+        elif self.spec.name == "3pXCR_slideseq":
+            # per-hit edit distances for ALL pre-filter adapter hits,
+            # names with the fasta '>' prefix (utils.py:459-461; the
+            # reference pigzes the csv, so the artifact is .csv.gz)
+            _atomic_to_csv(pd.DataFrame(
+                {0: [n for n, _ in self.eds_rows],
+                 1: [d for _, d in self.eds_rows]}),
+                f"{outdir}/{sample}_eds_names.csv.gz", index=None)
+            with FastaWriter(f"{outdir}/{sample}_polyA.fasta.gz") as f:
+                for n, s in self.polyA:
+                    f.write(n, s)
 
 
 def _atomic_to_csv(df, path, **kw):
@@ -265,13 +336,16 @@ def match_barcodes(spec, bcs_array, cands, outdir, sample, device,
 
 
 def dedup_outputs(spec, df, res, outdir, sample, knee_umi_name="knee"):
-    """_bcumi_dedup.csv + knee plot."""
+    """_bcumi_dedup.csv + knee plot(s)."""
     acc = df[df.status == ACCEPT]
     umi_codes = res["umi"][(df.status == ACCEPT).to_numpy()]
     table = counting.umi_dedup_table(acc.bc.to_numpy(), umi_codes)
     table.to_csv(f"{outdir}/{sample}_bcumi_dedup.csv")
     counting.save_knee_plot(f"{outdir}/{sample}_{knee_umi_name}.pdf",
                             table.umi_cnt.to_numpy(), "log10 UMI counts")
+    if knee_umi_name != "knee":
+        counting.save_knee_plot(f"{outdir}/{sample}_knee_reads.pdf",
+                                table.read_cnt.to_numpy(), "log10 read counts")
     return table
 
 
@@ -281,50 +355,133 @@ def _load_whitelist(path, spec_name):
             f"[nanoranger-torch] whitelist not found: {path!r}. Mode "
             f"{spec_name} needs --barcodes pointing at a whitelist "
             "(.txt/.txt.gz/.tsv.gz) or a cell-called 10x .h5.")
-    return whitelist.load(path, min_genes=20)
+    min_genes = 4 if spec_name == "3p10XTCR_nuc" else 20
+    return whitelist.load(path, min_genes=min_genes)
+
+
+def _v_panel_paths(mode, xpecies, trns_ref):
+    """V-gene panels for the native clonotyper. A V panel given as the
+    transcriptome ref (5p10XTCR/RTX/3p10XTCR_nuc defaults) is reused
+    directly; 3' modes align to C-gene panels, so the species' bundled V
+    panels are used instead."""
+    if trns_ref and "_V_" in os.path.basename(trns_ref):
+        return [trns_ref]
+    mouse = (xpecies == "mouse") or (not xpecies and mode in
+                                     ("3pXCR_slideseq", "3p10XTCR"))
+    names = (["TR_V_mouse.fa", "IG_V_mouse.fa"] if mouse
+             else ["TR_V_human.fa"])
+    return [os.path.join(DATA_DIR, n) for n in names
+            if os.path.isfile(os.path.join(DATA_DIR, n))]
+
+
+def _c_panel_paths(mode, xpecies, trns_ref):
+    """Constant-region panels for J/C locus assignment. A C panel given as
+    the transcriptome ref (3' modes) is reused; otherwise the species'
+    bundled TR/XR C panels."""
+    if trns_ref and "_C_" in os.path.basename(trns_ref):
+        return [trns_ref]
+    mouse = (xpecies == "mouse") or (not xpecies and mode in
+                                     ("3pXCR_slideseq", "3p10XTCR"))
+    names = (["XR_C_mouse.fa"] if mouse
+             else ["TR_C_human.fa", "IG_C_human.fa"])
+    return [os.path.join(DATA_DIR, n) for n in names
+            if os.path.isfile(os.path.join(DATA_DIR, n))]
+
+
+def _ensure_clonotypes(mode, sub_path, outdir, sample, trns_ref, xpecies,
+                       device) -> bool:
+    """Make clone exports available: MiXCR outputs win when present
+    (external boundary preserved, reference scripts/mixcr.sh); otherwise
+    the native clonotyper (vdj/) produces compatible tables. Returns True
+    when clone tables exist afterwards."""
+    if clone_stage.have_mixcr_outputs(sample, outdir):
+        return True
+    v_fastas = _v_panel_paths(mode, xpecies, trns_ref)
+    if not v_fastas:
+        log("no V-gene panel available for the native clonotyper; "
+            f"run mixcr on {sub_path} then re-run for clone tables")
+        return False
+    from .vdj import call_clonotypes
+    call_clonotypes(sub_path, v_fastas, outdir, sample,
+                    c_fastas=_c_panel_paths(mode, xpecies, trns_ref),
+                    log=log, device=device)
+    return clone_stage.have_mixcr_outputs(sample, outdir)
 
 
 def run_pipeline(mode, infile, outdir, sample, trns_ref=None, genome_ref=None,
                  barcodes=None, xpecies=None, batch_size=2048, force=False,
                  wl_shards=1, data_shards=1, scrub=False, device="cuda"):
     dev = resolve_device(device)
-    if mode not in MODE_DEFAULTS:
-        raise NotImplementedError(
-            f"mode {mode!r}: nanoranger_torch runs 5p10XGEX so far; the "
-            "other six modes arrive with the modes slice of the port")
     if wl_shards > 1 or data_shards > 1:
         raise NotImplementedError(
             "wl_shards/data_shards > 1: sharding arrives with the "
             "torch.distributed slice of the port")
+    spec = chemistry.get(mode)
     dflt = MODE_DEFAULTS[mode]
     trns_ref = trns_ref or os.path.join(DATA_DIR, dflt[0])
-    genome_ref = genome_ref or os.path.join(DATA_DIR, dflt[1])
-    barcodes = barcodes or os.path.join(DATA_DIR, dflt[2])
-    if os.path.isfile(genome_ref):
+    if dflt[1] and not genome_ref:
+        genome_ref = os.path.join(DATA_DIR, dflt[1])
+    if dflt[2] and not barcodes:
+        barcodes = os.path.join(DATA_DIR, dflt[2])
+    if mode == "5p10XGEX" and genome_ref and os.path.isfile(genome_ref):
         raise NotImplementedError(
             f"genome_ref {genome_ref!r}: the tagged-BAM genome stage arrives "
             "with the genome slice of the port; pass a genome_ref that does "
             "not exist to stop after dedup")
     os.makedirs(outdir, exist_ok=True)
-    spec = chemistry.get(mode)
 
     tele = Telemetry(mode, infile, dev)
     ts = time.time()
-    try:
-        bcs = _load_whitelist(barcodes, mode)
-    except SystemExit:
-        bcs = None            # reported after decon, as the JAX package does
-    matcher = (BarcodeMatcher(bcs, spec.barcode, dev)
-               if bcs is not None and len(bcs) else None)
+    # modes whose whitelist is known up front (everything but the
+    # data-driven 3p10XGEX) load it and build the matcher's tables first;
+    # a missing file is reported after decon, as the JAX package does
+    bcs = None
+    matcher = None
+    if mode not in ("RTX", "3p10XGEX"):
+        try:
+            bcs = _load_whitelist(barcodes, mode)
+        except SystemExit:
+            bcs = None
+        if bcs is not None and len(bcs):
+            matcher = BarcodeMatcher(bcs, spec.barcode, dev)
     # the stage keeps the JAX package's bounds (whitelist tables included);
     # their share rides along as whitelist_s
     whitelist_s = round(time.time() - ts, 3)
     run = DeconRun(spec, infile, outdir, sample, trns_ref, dev, batch_size,
                    force=force)
+    run.write_eds(outdir, sample)
     tele.stage("align_decon", time.time() - ts, run.n_reads,
                subreads=run.n_sub, candidates=len(run.cands),
                resumed=run.resumed, whitelist_s=whitelist_s)
-    if bcs is None:
+
+    if mode == "RTX":
+        ts = time.time()
+        _ensure_clonotypes(mode, run.sub_path, outdir, sample, trns_ref,
+                           xpecies, dev)
+        tele.stage("clonotypes", time.time() - ts)
+        tele.write(outdir, sample)
+        return
+
+    # whitelist
+    if mode == "3p10XGEX":
+        _atomic_to_csv(pd.Series(run.raw_counts, name="read_count"),
+                       f"{outdir}/{sample}_bc_read_count.csv")
+        # reference artifact name parity: the raw 16-mer counter is
+        # dumped as {sample}_bc_count.json too (utils.py:1403-1404)
+        tmp = f"{outdir}/{sample}_bc_count.json.tmp"
+        with open(tmp, "w") as f:
+            json.dump({k: int(v) for k, v in run.raw_counts.items()}, f)
+        os.replace(tmp, f"{outdir}/{sample}_bc_count.json")
+        if barcodes and os.path.isfile(barcodes):
+            bcs = whitelist.data_driven(run.raw_counts, barcodes)
+        else:
+            log("WARNING: master whitelist missing; using observed "
+                "barcodes with count>20 (reference requires "
+                "3M-february-2018.txt.gz)")
+            bcs = np.asarray([b for b, c in run.raw_counts.items()
+                              if c > 20 and len(b) == 16 and "N" not in b
+                              and "." not in b])
+    elif bcs is None:
         bcs = _load_whitelist(barcodes, mode)
     if len(bcs) == 0:
         log("no whitelist barcodes — stopping after decon")
@@ -339,8 +496,48 @@ def run_pipeline(mode, infile, outdir, sample, trns_ref=None, genome_ref=None,
                whitelist=int(len(bcs)))
 
     ts = time.time()
-    dedup_outputs(spec, df, res, outdir, sample)
-    tele.stage("dedup", time.time() - ts)
+    if mode == "5p10XGEX":
+        dedup_outputs(spec, df, res, outdir, sample)
+        tele.stage("dedup", time.time() - ts)
+    elif mode in ("5p10XTCR", "3p10XTCR_nuc"):
+        dedup_outputs(spec, df, res, outdir, sample, knee_umi_name="knee_UMI")
+        tele.stage("dedup", time.time() - ts)
+        ts = time.time()
+        if _ensure_clonotypes(mode, run.sub_path, outdir, sample, trns_ref,
+                              xpecies, dev):
+            _, cloneID = clone_stage.clone_filt_5p10X(sample, outdir)
+            acc = df[df.status == ACCEPT]
+            clone_stage.clone_bcumi_join(
+                cloneID, acc.name.tolist(), acc.bc.to_numpy(),
+                acc.umi.tolist(), f"{outdir}/{sample}_clone_bcumi.csv.gz")
+        tele.stage("clonotypes", time.time() - ts)
+    elif mode in ("3pXCR_slideseq", "3p10XTCR"):
+        if _ensure_clonotypes(mode, run.sub_path, outdir, sample, trns_ref,
+                              xpecies, dev):
+            _, cloneID = clone_stage.clone_filt_slideseq(sample, outdir)
+            acc = df[df.status == ACCEPT]
+            clone_stage.clone_bcumi_join(
+                cloneID, acc.name.tolist(), acc.bc.to_numpy(),
+                acc.umi.tolist(), f"{outdir}/{sample}_clone_bcumi.csv.gz",
+                clone_first=True)
+        tele.stage("clonotypes", time.time() - ts)
+    elif mode == "3p10XGEX":
+        acc = df[df.status == ACCEPT]
+        umi_codes = res["umi"][(df.status == ACCEPT).to_numpy()]
+        trns = [n.split("/ccs_")[-1].split("_") for n in acc.name]
+        trns = ["_".join(t[3:]) if len(t) > 3 else "" for t in trns]
+        trns = [t.split("|")[-1].split("_")[0] if "|" in t else t
+                for t in trns]                          # utils.py:1483-1486
+        with gzip.open(f"{outdir}/{sample}_quads.json.gz", "wt") as f:
+            json.dump(counting.quads_dict(acc.bc.to_numpy(), umi_codes,
+                                          trns), f)
+        genes, cells, cnts = counting.count_matrix(
+            acc.bc.to_numpy(), umi_codes, np.asarray(trns, dtype=object))
+        counting.write_mtx(f"{outdir}/{sample}", genes, cells, cnts)
+        log(f"count matrix: {len(genes)} genes × {len(cells)} cells, "
+            f"{len(cnts)} nonzeros")
+        tele.stage("count_matrix", time.time() - ts,
+                   genes=len(genes), cells=len(cells))
     if scrub:
         # the only stage checkpoint is the assignment table — removing it
         # trades the resume capability for the reference's footprint

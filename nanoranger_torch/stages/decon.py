@@ -14,8 +14,9 @@ engine replacing the reference's decon_* functions. Per alignment record
 
 Steps 2+3 are torch on the run's device; slicing/assembly is vectorized
 numpy at the host boundary where variable-length strings are written.
-The sliding sub-window scan of the 3' modes is not part of this package
-yet.
+The 5' modes scan the whole flank; the 3' modes scan sliding sub-windows
+of it, all flattened into one scan call, and the first hitting sub-window
+wins.
 
 Deviation note (as in the JAX package): python negative-index wraparound
 in the reference silently yields empty/garbage slices that the length
@@ -43,14 +44,32 @@ _RC_TABLE = bytes.maketrans(b"ACGTN.", b"TGCAN.")
 # --------------------------------------------------------------------------
 # device flank scan
 
-def _scan_flanks(codes, lengths, read_idx, strand, qstart, qend, anchor: int,
-                 lo: int, hi: int, pattern, k: int, wildcard: bool,
-                 pick_last: bool):
-    """Gather per-record flank windows in stored orientation and run the
-    adapter scan. All inputs are tensors on one device. Returns (window
-    (R, hi-lo) int8, wlen, wstart, ed, gstart, gend) — gstart/gend are
-    edlib locations within the flank window (gend INCLUSIVE), ed = -1 when
-    no hit."""
+def _sub_windows(window, wlen, wsize: int, stride: int, plus_one: bool):
+    """Sliding sub-windows window[:, i*stride : i*stride + wsize] of every
+    flank, flattened to (R * n_win, wsize) int8 rows with their lengths;
+    a sub-window the reference's loop would not visit has length 0."""
+    R, Wmax = window.shape
+    dev = window.device
+    n_win = Wmax // stride + (1 if plus_one else 0)
+    i_w = torch.arange(n_win, dtype=torch.int32, device=dev)
+    jj = torch.arange(wsize, dtype=torch.int32, device=dev)
+    sub_src = (i_w[:, None] * stride + jj[None]).clamp(0, Wmax - 1)
+    subs = window[:, sub_src.long()].reshape(R * n_win, wsize).contiguous()
+    # sub-window i exists per the reference's loop bounds
+    if plus_one:
+        w_exists = (i_w[None] * stride) <= wlen[:, None]
+    else:
+        w_exists = i_w[None] < (wlen[:, None] // stride)
+    sub_len = (wlen[:, None] - i_w[None] * stride).clamp(0, wsize)
+    sub_len = torch.where(w_exists, sub_len, 0).to(torch.int32)
+    return subs, sub_len.reshape(-1).contiguous(), n_win
+
+
+def _gather_flanks(codes, lengths, read_idx, strand, qstart, qend,
+                   anchor: int, lo: int, hi: int):
+    """Per-record flank windows in stored orientation: (window (R, hi-lo)
+    int8 with PAD beyond each length, wlen, wstart). All inputs are tensors
+    on one device."""
     L = codes.shape[1]
     dev = codes.device
     rlen = lengths[read_idx.long()]
@@ -72,9 +91,39 @@ def _scan_flanks(codes, lengths, read_idx, strand, qstart, qend, anchor: int,
     base = torch.where(strand[:, None] == 1, comp[base.long()], base)
     window = torch.where(j < wlen[:, None], base,
                          torch.tensor(PAD, dtype=torch.int8, device=dev))
-    window = window.to(torch.int8).contiguous()
-    ed, gs, ge = hw_locate(pattern, window, wlen, k, wildcard=wildcard,
-                           pick_last=pick_last)
+    return window.to(torch.int8).contiguous(), wlen, wstart
+
+
+def _scan_flanks(codes, lengths, read_idx, strand, qstart, qend, anchor: int,
+                 lo: int, hi: int, pattern, k: int, wildcard: bool,
+                 pick_last: bool, wsize: int | None = None,
+                 stride: int | None = None, plus_one: bool = False):
+    """Gather per-record flank windows in stored orientation and run the
+    adapter scan. All inputs are tensors on one device. Returns (window
+    (R, hi-lo) int8, wlen, wstart, ed, gstart, gend) — gstart/gend are
+    edlib locations within the flank window (gend INCLUSIVE), ed = -1 when
+    no hit. With `wsize` the scan runs over sub-windows
+    window[i*stride : i*stride + wsize] and reports the first one that
+    hits, its offset added to both locations."""
+    window, wlen, wstart = _gather_flanks(codes, lengths, read_idx, strand,
+                                          qstart, qend, anchor, lo, hi)
+    if wsize is None:
+        ed, gs, ge = hw_locate(pattern, window, wlen, k, wildcard=wildcard,
+                               pick_last=pick_last)
+        return window, wlen, wstart, ed, gs, ge
+
+    R = window.shape[0]
+    subs, sub_len, n_win = _sub_windows(window, wlen, wsize, stride, plus_one)
+    ed_w, gs_w, ge_w = (x.reshape(R, n_win) for x in hw_locate(
+        pattern, subs, sub_len, k, wildcard=wildcard, pick_last=pick_last))
+    hit_w = ed_w >= 0
+    found = hit_w.any(dim=1)
+    first = hit_w.to(torch.int32).argmax(dim=1, keepdim=True)
+    off = first[:, 0].to(torch.int32) * stride
+    neg = torch.full_like(off, -1)
+    ed = torch.where(found, ed_w.gather(1, first)[:, 0], neg)
+    gs = torch.where(found, gs_w.gather(1, first)[:, 0] + off, neg)
+    ge = torch.where(found, ge_w.gather(1, first)[:, 0] + off, neg)
     return window, wlen, wstart, ed, gs, ge
 
 
@@ -129,10 +178,6 @@ def run_decon(spec: ChemistrySpec, codes: np.ndarray, lengths: np.ndarray,
 
     # ---- adapter scan on the device ---------------------------------------
     if spec.scan is not None:
-        if spec.scan.window_size is not None:
-            raise NotImplementedError(
-                f"{spec.name}: the sliding sub-window adapter scan arrives "
-                "with the 3' modes slice of nanoranger_torch")
         f = spec.flank
         dev = torch.device(device)
         tt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -141,7 +186,9 @@ def run_decon(spec: ChemistrySpec, codes: np.ndarray, lengths: np.ndarray,
             tt(lengths.astype(np.int32)), tt(read_idx), tt(strand),
             tt(qstart), tt(qend), _anchor_code(f.anchor), f.lo, f.hi,
             tt(encode(spec.scan.pattern)), spec.scan.k,
-            spec.scan.n_wildcard, spec.scan.pick_last)
+            spec.scan.n_wildcard, spec.scan.pick_last,
+            spec.scan.window_size, spec.scan.window_stride,
+            spec.scan.windows_plus_one)
         window, wlen, wstart, ed, gs, ge = (
             x.cpu().numpy() for x in (window, wlen, wstart, ed, gs, ge))
         hit = (ed >= 0) & (ed < spec.scan.max_ed_exclusive)

@@ -1,7 +1,9 @@
 """Staged whitelist match of the PyTorch port (exact tiers, then the
 one-vs-all DP, then the banded UMI rescore) against the JAX package's
 BarcodeMatcher on candidates that resolve in the tiers and candidates that
-need the DP, over a seeded slice of the 737K whitelist."""
+need the DP, over a seeded slice of the 737K whitelist; and on the other
+chemistries' geometries (slideseq linker rows without tier tables, the
+nuc and 3' GEX pads). Every output is an integer array and must be equal."""
 
 import os
 
@@ -14,6 +16,7 @@ from nanoranger_tpu.stages.barcode import BarcodeMatcher as JaxMatcher
 from nanoranger_tpu.stages.barcode import revcomp_rows as jax_revcomp_rows
 
 from nanoranger_torch import chemistry
+from nanoranger_torch.chemistry import SLIDESEQ_LINKER
 from nanoranger_torch.io import whitelist
 from nanoranger_torch.io.encode import encode_batch
 from nanoranger_torch.stages import barcode
@@ -102,4 +105,58 @@ def test_staged_match_equals_jax(barcodes, monkeypatch):
     # both stages were exercised: tier verdicts and DP rows
     assert sum(dp_rows) >= 10
     assert (got["status"] == ACCEPT).sum() >= 40
+    assert len(set(got["status"].tolist())) >= 4
+
+
+def _structured(rng, spec, barcodes, n):
+    """Candidates laid out as the mode's BC-UMI slice: lead-in, barcode
+    (around the linker for slideseq rows), UMI, tail; exact, lightly
+    edited, heavily edited, with an N, reverse strand, and truncated."""
+    seqs = []
+    for i in range(n):
+        bc = barcodes[int(rng.integers(len(barcodes)))]
+        kind = i % 6
+        if kind == 2:
+            bc = _edit(rng, bc, 1)
+        elif kind == 3:
+            bc = _edit(rng, bc, int(rng.integers(2, 4)))
+        elif kind == 4:
+            bc = bc[:3] + "N" + bc[4:]
+        core = (bc[:8] + SLIDESEQ_LINKER + bc[8:] if spec.slideseq_linker
+                else bc)
+        lead = "".join(rng.choice(list("ACGT"),
+                                  spec.bc_query_offset + int(rng.integers(3))))
+        umi = "".join(rng.choice(list("ACGT"), spec.umi_len))
+        s = lead + core + umi + "".join(rng.choice(list("ACGT"),
+                                                   int(rng.integers(0, 6))))
+        if kind == 5:
+            s = s[::-1].translate(COMP)
+        if i % 11 == 10:
+            s = s[:len(lead) + len(core) + 3]          # UMI cut short
+        seqs.append(s)
+    return seqs + ["", "ACGT"]
+
+
+@pytest.mark.parametrize("mode", ["3pXCR_slideseq", "3p10XTCR",
+                                  "3p10XTCR_nuc", "3p10XGEX"])
+def test_staged_match_equals_jax_on_every_geometry(barcodes, mode):
+    spec = chemistry.get(mode).barcode
+    if spec.slideseq_linker:
+        full = whitelist.load(os.path.join(
+            REPO, "data", "slideseq.matched.barcodes.tsv.gz"))
+        assert len(full) == 17753 and len(full[0]) == 14
+        rng = np.random.default_rng(1016)
+        bcs = np.sort(full[rng.choice(len(full), 600, replace=False)])
+    else:
+        bcs = barcodes
+    rng = np.random.default_rng(len(mode) * 31 + spec.pad_left)
+    q, qlen = encode_batch(_structured(rng, spec, bcs, 36), max_len=96)
+    m = BarcodeMatcher(bcs, spec, "cpu")
+    assert ("ex_keys" in m.tables) == (not spec.slideseq_linker)
+    got = m.match(q, qlen)
+    want = JaxMatcher(bcs, jax_chemistry.get(mode).barcode).match(q, qlen)
+    for k in ("bc_idx", "score", "status", "umi", "qpos"):
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]),
+                                      err_msg=k)
+    assert (got["status"] == ACCEPT).sum() >= 10
     assert len(set(got["status"].tolist())) >= 4

@@ -1,6 +1,6 @@
-"""The port's four Hopper kernels against their plain PyTorch versions on
-the card, at ragged shapes the main path does not exercise (chip_smoke.py
-holds them at the main-path shapes). Every test is marked `cuda` and skips
+"""The port's five Hopper kernel libraries against their plain PyTorch
+versions on the card, at ragged shapes the main paths do not exercise
+(chip_smoke.py holds them at the main-path shapes). Every test is marked `cuda` and skips
 without a card. The file imports neither JAX nor the JAX package, so on a
 machine with a card and no JAX it runs as
 
@@ -15,7 +15,8 @@ from nanoranger_torch import kernels
 from nanoranger_torch.io.encode import PAD
 from nanoranger_torch.ops.chain import chain_dp, chain_dp_plain
 from nanoranger_torch.ops.edit_distance import hw_locate, hw_locate_plain
-from nanoranger_torch.ops.sw import sw_banded_plain, sw_end2end_banded
+from nanoranger_torch.ops.sw import (sw_banded_plain, sw_end2end,
+                                     sw_end2end_banded, sw_end2end_plain)
 from nanoranger_torch.ops.whitelist_verify import verify_all, verify_all_plain
 
 torch.set_num_threads(1)
@@ -61,7 +62,9 @@ def test_chain_kernel(dev, B, A):
     torch.testing.assert_close(f[v], fp[v], rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("W,m", [(100, 51), (37, 14), (128, 64)])
+@pytest.mark.parametrize("W,m", [(100, 51), (37, 14), (128, 64), (129, 30),
+                                 (150, 54), (220, 53), (270, 20), (40, 18),
+                                 (512, 64)])
 @pytest.mark.parametrize("wildcard,pick_last", [(True, True), (False, False),
                                                 (True, False), (False, True)])
 def test_ed_kernel(dev, W, m, wildcard, pick_last):
@@ -84,10 +87,38 @@ def test_ed_kernel(dev, W, m, wildcard, pick_last):
     assert int((want[0] >= 0).sum()) > 20
 
 
-@pytest.mark.parametrize("m,Lq", [(16, 96), (32, 128)])
-def test_verify_kernel(dev, m, Lq):
-    rng = np.random.default_rng(m * Lq)
-    R, C = 1000, 70
+def test_ed_kernel_takes_many_rows(dev):
+    """The windowed scan flattens records x sub-windows: tens of thousands
+    of 270-wide rows in one launch."""
+    rng = np.random.default_rng(270)
+    R, W, m = 11 * 4099, 270, 20
+    pattern = rng.integers(0, 4, size=m).astype(np.int8)
+    texts = rng.integers(0, 4, size=(R, W)).astype(np.int8)
+    lengths = rng.integers(0, W + 1, size=R).astype(np.int32)
+    for b in range(0, R, 7):
+        if lengths[b] >= m:
+            p0 = int(rng.integers(0, lengths[b] - m + 1))
+            texts[b, p0:p0 + m] = pattern
+    texts[np.arange(W)[None] >= lengths[:, None]] = PAD
+    args = [torch.from_numpy(a).to(dev) for a in (pattern, texts, lengths)]
+    got = hw_locate(*args, 2, False, False)
+    want = hw_locate_plain(*args, 2, False, False)
+    _equal(got, want)
+    assert int((want[0] >= 0).sum()) > 4000
+
+
+def test_ed_wrapper_states_its_limit(dev):
+    z = torch.zeros((2, 513), dtype=torch.int8, device=dev)
+    n = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="W <= 512"):
+        hw_locate(torch.zeros(20, dtype=torch.int8, device=dev), z, n, 2)
+
+
+@pytest.mark.parametrize("m,Lq,R", [(16, 96, 1000), (32, 128, 1000),
+                                    (32, 96, 17753)])
+def test_verify_kernel(dev, m, Lq, R):
+    rng = np.random.default_rng(m * Lq + R)
+    C = 70
     cores = rng.integers(0, 4, size=(R, m)).astype(np.int8)
     cores[777] = cores[5]                       # a tie
     q = np.full((C, Lq), PAD, np.int8)
@@ -124,6 +155,73 @@ def test_sw_banded_kernel(dev, pad_left, core, pad_right):
     got = sw_end2end_banded(*args)
     want = sw_banded_plain(*args)
     _equal(got, want)
+
+
+def _full_rows(rng, pad_left, core, pad_right, P, Lq):
+    Lr = pad_left + core + pad_right
+    q = np.full((P, Lq), PAD, np.int8)
+    qlen = rng.integers(0, Lq + 1, size=P).astype(np.int32)
+    qlen[:2] = (0, Lq)
+    refs = np.full((P, Lr), 4, np.int8)
+    refs[:, pad_left:pad_left + core] = rng.integers(0, 4, size=(P, core))
+    for i in range(P):
+        q[i, :qlen[i]] = rng.integers(0, 5, qlen[i])
+        at = int(rng.integers(0, 20))
+        n = max(0, min(core, int(qlen[i]) - at))
+        q[i, at:at + n] = refs[i, pad_left:pad_left + n]
+        if i % 4 == 0 and n > 8:                     # a deletion
+            q[i, at + 5:at + n - 1] = q[i, at + 6:at + n]
+    return q, qlen, refs, Lr
+
+
+@pytest.mark.parametrize("pad_left,core,pad_right", [
+    (30, 16, 40), (15, 32, 24), (16, 16, 28), (4, 16, 17)])
+def test_sw_full_kernel(dev, pad_left, core, pad_right):
+    """K6 == its plain version == the banded kernel on padded rows."""
+    rng = np.random.default_rng(pad_left * core + 1)
+    P, Lq = 300, 96
+    q, qlen, refs, Lr = _full_rows(rng, pad_left, core, pad_right, P, Lq)
+    c = pad_left + core
+    args = [torch.from_numpy(a).to(dev) for a in
+            (q, qlen, refs, np.full(P, Lr, np.int32))]
+    before = kernels.launches["sw_full"]
+    got = sw_end2end(*args, c)
+    assert kernels.launches["sw_full"] == before + 1
+    _equal(got, sw_end2end_plain(*args, c))
+    _equal(got, sw_end2end(*args, c, pad_left=pad_left))
+    assert int(got[2].sum()) > P // 2
+
+
+@pytest.mark.parametrize("Lq,Lr,c", [(127, 128, 127), (48, 60, 0),
+                                     (33, 37, 20)])
+def test_sw_full_kernel_ragged(dev, Lq, Lr, c):
+    """Random references of differing lengths, the widest shapes the kernel
+    takes, and the UMI column at either end of the row."""
+    rng = np.random.default_rng(Lq * Lr + c)
+    P = 257
+    q = rng.integers(0, 5, size=(P, Lq)).astype(np.int8)
+    qlen = rng.integers(0, Lq + 1, size=P).astype(np.int32)
+    refs = rng.integers(0, 5, size=(P, Lr)).astype(np.int8)
+    rlen = rng.integers(1, Lr + 1, size=P).astype(np.int32)
+    rlen[:P // 2] = Lr
+    for i in range(P):
+        n = min(int(qlen[i]), int(rlen[i]) - 3)
+        if n > 0:
+            q[i, :n] = refs[i, 3:3 + n]
+        q[i, qlen[i]:] = PAD
+        refs[i, rlen[i]:] = PAD
+    args = [torch.from_numpy(a).to(dev) for a in (q, qlen, refs, rlen)]
+    got = sw_end2end(*args, c)
+    _equal(got, sw_end2end_plain(*args, c))
+    assert int(got[2].sum()) > 0
+
+
+def test_sw_full_wrapper_states_its_limit(dev):
+    q = torch.zeros((2, 128), dtype=torch.int8, device=dev)
+    n = torch.zeros(2, dtype=torch.int32, device=dev)
+    r = torch.zeros((2, 86), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="Lq <= 127"):
+        sw_end2end(q, n, r, n, 46)
 
 
 def test_wrappers_refuse_bad_tensors(dev):

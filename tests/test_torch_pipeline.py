@@ -109,13 +109,16 @@ def test_import_leaves_jax_out():
             "bad = [m for m in sys.modules if m == 'jax'"
             " or m.startswith(('jax.', 'jaxlib', 'nanoranger_tpu'))]\n"
             "assert not bad, bad\n"
+            "for m in ('vdj.caller', 'vdj.cdr3', 'vdj.clonotype',"
+            " 'runtime.native_lib', 'stages.clones'):\n"
+            "    assert 'nanoranger_torch.' + m in sys.modules, m\n"
             "print(len([m for m in sys.modules"
             " if m.startswith('nanoranger_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    assert int(out.stdout.split()[-1]) >= 28
 
 
 IMPORT_RE = re.compile(
@@ -162,7 +165,7 @@ def test_entry_points_refuse_the_cpu_fallback(tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mode="5p10XTCR"), "mode"),
+    (dict(genome_ref=None), "genome"),      # the mode's default genome
     (dict(genome_ref=os.path.join(DATA, "MT_chr.fa")), "genome"),
     (dict(wl_shards=2), "shards"),
     (dict(data_shards=2), "shards"),
