@@ -12,8 +12,10 @@ Phases, each of which must pass or the script exits non-zero:
                and pattern with windows cut from TCR3 and slideseq reads,
                the one-vs-all DP at core 32 against the full slideseq list,
                the banded rescore at band 33, the full-row rescore at the
-               four pad geometries); one JSON line per kernel and shape
-               with its time, the plain version's time and the mismatches
+               four pad geometries), and the one-vs-all DP at the candidate
+               rows of the K562 run's launch (118) and of the slideseq
+               run's last (336); one JSON line per kernel and shape with its
+               time, the plain version's time and the mismatches
   3. main    — run nanoranger_torch.pipeline.run_pipeline("5p10XGEX") on
                the K562 sample against the full 737,280-row whitelist,
                hold the artifacts to the K562 golden counts, and check
@@ -31,10 +33,17 @@ line {"ok": true, "device": {...}}.
 
 It needs a CUDA card and the repository around it: without a card, or
 without the package beside it, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --kernels
+
+runs phases 1 and 2 only and prints the card line: the quick check of the
+kernels, and the way to time two trees in turns (copy this script into a
+checkout of each and run them old, new, new, old in one call).
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import gzip
 import json
@@ -74,6 +83,11 @@ GOLDEN_SLIDESEQ = {"n_subreads": 5088, "subread_bases": 1335410,
 # outside the tensor cores, used as the ceiling of 32-bit scalar ops
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# packed 16-bit integer ops (16x2 adds and the DPX maxima): the float32 rate
+# is 128 lanes x 2 flops (an FMA) a clock on each SM, and a 16x2 instruction
+# does one op in each 16-bit half of a lane, so at one instruction a lane a
+# clock the card does 2 x 33.5e12 16-bit ops a second
+PACKED16_OPS_PER_S = 67e12
 
 KERNELS = {   # name -> (source, TPU kernel it replaces)
     "chain": ("nanoranger_torch/csrc/chain.cu",
@@ -126,9 +140,9 @@ def plain_ms_of(fn):
     return out, (time.time() - t0) * 1e3
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = SCALAR_OPS_PER_S):
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_o = n_ops / SCALAR_OPS_PER_S * 1e3
+    t_o = n_ops / ops_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -265,38 +279,73 @@ def structured_candidates(rng, barcodes, n, spec, edits=(0, 4)):
     return seqs, truth
 
 
-def check_verify_sw(dev, barcodes, spec, seqs):
-    """K4 on 256 candidates and their reverse complements against every
-    whitelist row, then K5 on the winners' bands."""
+def verify_args(dev, coreT, spec, seqs):
+    """The one-vs-all DP's arguments as the staged match builds them: the
+    candidates and their reverse complements (2 x len(seqs) rows of 96)
+    against every row of coreT."""
     import torch
 
     from nanoranger_torch.io.encode import encode_batch
-    from nanoranger_torch.ops.sw import sw_banded_plain, sw_end2end_banded
-    from nanoranger_torch.ops.whitelist_verify import (verify_all,
-                                                       verify_all_plain)
-    from nanoranger_torch.stages.barcode import build_tables, revcomp_rows
-    tables, ref_len = build_tables(barcodes, spec)
-    coreT = torch.from_numpy(tables["coreT"]).to(dev)
+    from nanoranger_torch.stages.barcode import revcomp_rows
     q_np, ql_np = encode_batch(seqs, max_len=96)
     qf = torch.from_numpy(q_np).to(dev)
     qlf = torch.from_numpy(ql_np).to(dev)
-    n = qf.shape[0]
     qq = torch.cat([qf, revcomp_rows(qf, qlf)]).contiguous()   # (2n, 96)
-    qql = torch.cat([qlf, qlf])
-    R = len(barcodes)
-    args = (qq, qql, coreT, R, spec.pad_left, spec.pad_right)
+    return (qq, torch.cat([qlf, qlf]), coreT, coreT.shape[1], spec.pad_left,
+            spec.pad_right)
+
+
+def verify_cells(args) -> int:
+    qq, qql, coreT = args[:3]
+    return int(qql.sum()) * coreT.shape[0] * coreT.shape[1]
+
+
+def verify_bound(args):
+    """K4's bound: its DP cells at two packed 16-bit ops each (the add of
+    the diagonal's score and the three-way maximum, one 16x2 instruction
+    for two cells each) against the bytes of cores, candidates and the
+    three outputs."""
+    qq, _, coreT = args[:3]
+    m, R = coreT.shape
+    return bound(m * R + qq.numel() + 4 * qq.shape[0] * 4,
+                 verify_cells(args) * 2, PACKED16_OPS_PER_S)
+
+
+def check_verify(args):
+    """K4 against its plain version on one launch's arguments."""
+    from nanoranger_torch.ops.whitelist_verify import (verify_all,
+                                                       verify_all_plain)
     got = verify_all(*args)
     ms = cuda_ms(lambda: verify_all(*args), 3)
     ref, plain_ms = plain_ms_of(
         lambda: verify_all_plain(*args, r_chunk=32768))
     mism, err = compare(got, ref)
-    m = coreT.shape[0]
-    cells = int(qql.sum()) * m * R
-    verify = {"shape": [int(qq.shape[0]), int(qq.shape[1]), m, R],
-              "ms": ms, "plain_ms": plain_ms, "mismatches": mism,
-              "max_abs_err": err,
-              "bound": bound(m * R + qq.numel() + 4 * qq.shape[0] * 4,
-                             cells * 6)}
+    qq, _, coreT = args[:3]
+    return {"shape": [int(qq.shape[0]), int(qq.shape[1]), *coreT.shape],
+            "ms": ms, "plain_ms": plain_ms, "mismatches": mism,
+            "max_abs_err": err, "bound": verify_bound(args)}, got
+
+
+def check_verify_sw(dev, barcodes, spec, seqs, launch_rows):
+    """K4 on the candidates and their reverse complements against every
+    whitelist row, then K5 on the winners' bands; K4 also on the first
+    rows of `seqs` at each candidate-row count of `launch_rows` (the
+    pipeline's own launches)."""
+    import torch
+
+    from nanoranger_torch.ops.sw import sw_banded_plain, sw_end2end_banded
+    from nanoranger_torch.stages.barcode import build_tables
+    tables, ref_len = build_tables(barcodes, spec)
+    coreT = torch.from_numpy(tables["coreT"]).to(dev)
+    args = verify_args(dev, coreT, spec, seqs)
+    verify, got = check_verify(args)
+    at_launch = [check_verify(verify_args(dev, coreT, spec,
+                                          seqs[:rows // 2]))[0]
+                 for rows in launch_rows]
+    qq, qql = args[:2]
+    n = qq.shape[0] // 2
+    qf, qlf = qq[:n], qql[:n]
+    R = len(barcodes)
 
     band = torch.from_numpy(tables["band"]).to(dev)[
         got[1][:n].clamp(0, R - 1).long()].contiguous()
@@ -310,7 +359,7 @@ def check_verify_sw(dev, barcodes, spec, seqs):
           "plain_ms": plain_ms, "mismatches": mism, "max_abs_err": err,
           "bound": bound(qf.numel() + band.numel() + 16 * qf.shape[0],
                          int(qlf.sum()) * nb * 2 * 6)}
-    return verify, sw
+    return verify, at_launch, sw
 
 
 def check_sw_full(dev, barcodes, spec, rng):
@@ -502,6 +551,12 @@ def rescan_failed(r) -> bool:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "NVIDIA card.")
+    ap.add_argument("--kernels", action="store_true",
+                    help="phases 1 and 2 only: build the kernels and hold "
+                    "each against its plain version")
+    opts = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -550,11 +605,12 @@ def main() -> int:
                                 False, False)
     seqs, _ = structured_candidates(rng, barcodes, 256, spec.barcode,
                                     edits=(2, 5))
-    res["verify"], res["sw"] = check_verify_sw(dev, barcodes, spec.barcode,
-                                               seqs)
+    # K4 also at the K562 run's own launch: 118 candidate rows
+    res["verify"], (v_k562,), res["sw"] = check_verify_sw(
+        dev, barcodes, spec.barcode, seqs, (118,))
     rows = [("chain", res["chain"]), ("ed_wildcard_last", res["ed"]),
             ("ed_plain_first", ed_first), ("verify", res["verify"]),
-            ("sw", res["sw"])]
+            ("verify_C118_k562", v_k562), ("sw", res["sw"])]
 
     # ---- phase 2, the other modes' shapes
     v_index = PanelIndex.from_fasta(V_PANEL)
@@ -577,8 +633,11 @@ def main() -> int:
                                                  w, wl_)))
     ss_spec = get_spec("3pXCR_slideseq").barcode
     seqs, _ = structured_candidates(rng, ss_barcodes, 256, ss_spec)
-    r_v, r_s = check_verify_sw(dev, ss_barcodes, ss_spec, seqs)
-    rows += [("verify_m32_slideseq", r_v), ("sw_band33", r_s)]
+    # and at the slideseq run's last launch: 336 candidate rows
+    r_v, (r_v336,), r_s = check_verify_sw(dev, ss_barcodes, ss_spec, seqs,
+                                          (336,))
+    rows += [("verify_m32_slideseq", r_v),
+             ("verify_m32_C336_slideseq", r_v336), ("sw_band33", r_s)]
     for mode, bcs in (("5p10XGEX", barcodes), ("3pXCR_slideseq", ss_barcodes),
                       ("3p10XTCR_nuc", barcodes), ("3p10XGEX", barcodes)):
         r = check_sw_full(dev, bcs, get_spec(mode).barcode, rng)
@@ -597,6 +656,9 @@ def main() -> int:
         print(f"chip_smoke: kernels disagree with their plain versions: "
               f"{failed}", file=sys.stderr)
         return 1
+    if opts.kernels:
+        print(card, flush=True)
+        return 0
 
     # ---- phases 3 to 5
     by_run = {}

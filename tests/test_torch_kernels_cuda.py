@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from nanoranger_torch import kernels
-from nanoranger_torch.io.encode import PAD
+from nanoranger_torch.io.encode import N, PAD
 from nanoranger_torch.ops.chain import chain_dp, chain_dp_plain
 from nanoranger_torch.ops.edit_distance import hw_locate, hw_locate_plain
 from nanoranger_torch.ops.sw import (sw_banded_plain, sw_end2end,
@@ -114,23 +114,91 @@ def test_ed_wrapper_states_its_limit(dev):
         hw_locate(torch.zeros(20, dtype=torch.int8, device=dev), z, n, 2)
 
 
-@pytest.mark.parametrize("m,Lq,R", [(16, 96, 1000), (32, 128, 1000),
-                                    (32, 96, 17753)])
-def test_verify_kernel(dev, m, Lq, R):
-    rng = np.random.default_rng(m * Lq + R)
-    C = 70
+def _verify_inputs(rng, m, Lq, R, C, edges):
+    """Candidates against R random cores of m. Rows 5, 261, 517 and 777
+    share a core (ties across row blocks of 256), every fourth candidate
+    carries it (ties across candidate groups of 16). With `edges`: N and PAD
+    in the cores and PAD in the queries, rows 10 and 11 equal (a tie inside
+    one thread's row pair, carried by candidates 2, 6, ...), the first
+    candidate Lq long and the last empty."""
     cores = rng.integers(0, 4, size=(R, m)).astype(np.int8)
-    cores[777] = cores[5]                       # a tie
+    if edges:
+        u = rng.random((R, m))
+        cores[u < 0.03] = N
+        cores[(u >= 0.03) & (u < 0.05)] = PAD
+        cores[11] = cores[10]
+    for r in (261, 517, 777):
+        if r < R:
+            cores[r] = cores[5]
     q = np.full((C, Lq), PAD, np.int8)
     qlen = rng.integers(0, Lq + 1, size=C).astype(np.int32)
+    if edges:
+        qlen[::4] = np.clip(qlen[::4], m + 10, Lq)
+        qlen[0] = Lq
+        qlen[-1] = 0 if C > 1 else Lq
     for i in range(C):
-        q[i, :qlen[i]] = rng.integers(0, 5, qlen[i])
+        q[i, :qlen[i]] = rng.integers(0, 5, qlen[i])       # N included
+        if edges:
+            q[i, :qlen[i]][rng.random(qlen[i]) < 0.03] = PAD
         if qlen[i] >= m + 10 and i % 2 == 0:
-            r = 5 if i % 4 == 0 else int(rng.integers(R))
+            r = 5 if i % 4 == 0 else 10 if edges else int(rng.integers(R))
             q[i, 10:10 + m] = cores[r]
-    coreT = torch.from_numpy(np.ascontiguousarray(cores.T)).to(dev)
+    return q, qlen, np.ascontiguousarray(cores.T)
+
+
+@pytest.mark.parametrize("m,Lq,R,C,r_valid,pads,edges", [
+    (16, 96, 1000, 70, 997, (30, 40), False),
+    (32, 128, 1000, 70, 997, (30, 40), False),
+    (32, 96, 17753, 70, 17750, (30, 40), False),
+    # odd R, r_valid between the two rows of one thread, C = group + 1
+    (16, 128, 1001, 17, 999, (0, 40), True),
+    (32, 128, 1025, 1, 1023, (30, 0), True),           # C = 1
+    (16, 128, 1537, 33, 1535, (0, 0), True),
+    (32, 96, 513, 16, 513, (15, 24), True),
+    (16, 96, 1001, 40, 300, (30, 40), True),           # dead row blocks
+    (16, 20, 300, 20, 257, (200, 300), True),          # pads past Lq
+    (32, 128, 700, 5, 0, (3, 3), False),               # no live row
+])
+def test_verify_kernel(dev, m, Lq, R, C, r_valid, pads, edges):
+    """K4 equals its plain version bit for bit: best, smallest index and
+    ties."""
+    rng = np.random.default_rng(m * Lq + R + C)
+    q, qlen, coreT = _verify_inputs(rng, m, Lq, R, C, edges)
     args = (torch.from_numpy(q).to(dev), torch.from_numpy(qlen).to(dev),
-            coreT, R - 3, 30, 40)
+            torch.from_numpy(coreT).to(dev), r_valid, *pads)
+    before = kernels.launches["verify"]
+    got = verify_all(*args)
+    assert kernels.launches["verify"] == before + 1
+    want = verify_all_plain(*args)
+    _equal(got, want)
+    if C > 1 and r_valid > 777:
+        assert int((want[2] > 1).sum()) > 0
+
+
+def test_verify_kernel_any_query_code_and_negative_length(dev):
+    """Query codes outside 0..5 score as the plain version scores them (0
+    against an N core, -1 elsewhere), and a negative length as 0 does."""
+    rng = np.random.default_rng(11)
+    q, qlen, coreT = _verify_inputs(rng, 16, 96, 1000, 20, True)
+    odd = rng.random(q.shape) < 0.05
+    q[odd] = rng.choice(np.array([6, 7, 127, -1, -128], np.int8),
+                        int(odd.sum()))
+    qlen[1], qlen[3] = -3, -100
+    args = (torch.from_numpy(q).to(dev), torch.from_numpy(qlen).to(dev),
+            torch.from_numpy(coreT).to(dev), 998, 30, 40)
+    _equal(verify_all(*args), verify_all_plain(*args))
+
+
+def test_verify_kernel_odd_base_address(dev):
+    """coreT at an odd address: the row pairs load byte by byte."""
+    rng = np.random.default_rng(7)
+    q, qlen, coreT = _verify_inputs(rng, 16, 96, 1000, 20, True)
+    flat = torch.zeros(coreT.size + 1, dtype=torch.int8, device=dev)
+    flat[1:] = torch.from_numpy(coreT.ravel()).to(dev)
+    odd = flat[1:].view(coreT.shape)
+    assert odd.data_ptr() % 2 == 1
+    args = (torch.from_numpy(q).to(dev), torch.from_numpy(qlen).to(dev),
+            odd, 998, 30, 40)
     _equal(verify_all(*args), verify_all_plain(*args))
 
 

@@ -185,3 +185,15 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_kernels_mode_fails_without_card_or_repo(tmp_path):
+    """`--kernels` (phases 1 and 2 only) refuses, as the full run does, in a
+    directory that holds only the script, and rejects an unknown flag."""
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    for args in (["--kernels"], ["--verify"]):
+        out = subprocess.run([sys.executable, "chip_smoke.py", *args],
+                             cwd=tmp_path, capture_output=True, text=True,
+                             timeout=300)
+        assert out.returncode != 0
+        assert out.stdout == ""

@@ -66,6 +66,30 @@ def test_plain_matches_xla_and_oracle(rng, geom):
             verify_reference(seqs[i], cores, pl, pr)
 
 
+def test_plain_scores_n_and_pad_in_cores_and_queries(rng):
+    """N and PAD inside the cores and PAD inside the queries, which the
+    Hopper kernel scores through a PAD bitmask and uniform branches: the
+    plain version equals the XLA version (PAD before N, as the Pallas
+    kernel scores too) and, on the queries without a PAD, the oracle,
+    which scores a query PAD against a core N as 0."""
+    C, R, m, pl, pr, Lq = 8, 12, 8, 4, 5, 20
+    cores, q, qlen, seqs = _case(rng, C, R, m, Lq, with_n=True)
+    u = rng.random((R, m))
+    cores[u < 0.15] = N
+    cores[(u >= 0.15) & (u < 0.3)] = PAD
+    with_pad = np.arange(C) % 2 == 1
+    for i in np.where(with_pad & (qlen > 2))[0]:
+        q[i, 1] = PAD
+    want = [np.asarray(x) for x in verify_all_xla(
+        q, qlen, cores.T.copy(), R, pl, pr, r_chunk=8)]
+    got = _port(q, qlen, cores.T, R, pl, pr)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    for i in np.where(~with_pad)[0]:
+        assert tuple(int(x[i]) for x in got) == \
+            verify_reference(seqs[i], cores, pl, pr)
+
+
 def test_rows_past_r_valid_never_win(rng):
     R, m = 5, 8
     cores = rng.integers(0, 4, size=(R, m)).astype(np.int8)
