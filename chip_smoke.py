@@ -7,7 +7,11 @@ Phases, each of which must pass or the script exits non-zero:
                the Hopper kernels from nanoranger_torch/csrc (timed)
   2. kernels — hold every kernel against its plain PyTorch version on the
                card, at the shapes the main paths give it: the 5p10XGEX
-               shapes of the K562 run, then the other modes' (chain DP on
+               shapes of the K562 run, the chain DP's splice class at the
+               genome stage's (512 reads of 1026_mtDNA_ASXL1_NRAS_SF3B1
+               against MT_chr.fa, 512 synthetic 3-exon reads against a
+               synthetic genome; each must link some anchors across an
+               intron), then the other modes' (chain DP on
                the V and C panels, the adapter scan at every mode's window
                and pattern with windows cut from TCR3 and slideseq reads,
                the one-vs-all DP at core 32 against the full slideseq list,
@@ -18,9 +22,14 @@ Phases, each of which must pass or the script exits non-zero:
                time, the plain version's time and the mismatches
   3. main    — run nanoranger_torch.pipeline.run_pipeline("5p10XGEX") on
                the K562 sample against the full 737,280-row whitelist,
-               hold the artifacts to the K562 golden counts, and check
+               genome stage included, hold the artifacts to the K562 golden
+               counts (tests/goldens/real_samples.json, the tagged BAM's
+               record count and the run's stages included), and check
                that every kernel of that path was launched by the run
-  4. modes   — the same for 5p10XTCR on TCR3 (full 737K whitelist, clone
+  4. modes   — the same for the other three 5p10XGEX samples with their
+               genomes (1022 and 1026 against panel_MT_trns.fa and
+               MT_chr.fa, 97_6_CAR against CAR_CD28.fa), for 5p10XTCR on
+               TCR3 (full 737K whitelist, clone
                tables included), 3pXCR_slideseq on slideseq_XCR (full
                17,753-row list) and RTX on TCR3 (subreads and clonotypes,
                no barcodes), launch counts reset before each run
@@ -61,23 +70,17 @@ PANEL = os.path.join(DATA, "RUNX1_RUNX1T1_ABL1_BCR.fa")
 WHITELIST = os.path.join(DATA, "737K-august-2016.txt.gz")
 TCR3 = os.path.join(DATA, "samples", "TCR3.fastq.gz")
 V_PANEL = os.path.join(DATA, "TR_V_human.fa")
+MT_PANEL = os.path.join(DATA, "panel_MT_trns.fa")
+MT_GENOME = os.path.join(DATA, "MT_chr.fa")
+CAR_PANEL = os.path.join(DATA, "CAR_CD28.fa")
+S1022 = os.path.join(DATA, "samples", "1022_DNMT3A_RUNX1_SF3B1.fastq.gz")
+S1026 = os.path.join(DATA, "samples", "1026_mtDNA_ASXL1_NRAS_SF3B1.fastq.gz")
+S_CAR = os.path.join(DATA, "samples", "97_6_CAR.fastq.gz")
+GOLDENS = os.path.join(HERE, "tests", "goldens", "real_samples.json")
 SLIDESEQ = os.path.join(DATA, "samples", "slideseq_XCR.fastq.gz")
 C_PANEL = os.path.join(DATA, "XR_C_mouse.fa")
 SLIDESEQ_WL = os.path.join(DATA, "slideseq.matched.barcodes.tsv.gz")
 
-# entries of tests/goldens/real_samples.json (n_tagged_bam and the genome
-# stage are outside the port so far)
-GOLDEN = {"n_subreads": 3054, "subread_bases": 877020, "n_candidates": 3054,
-          "n_accepted": 2677, "n_distinct_bc": 338, "umi_len_mode": 10,
-          "n_dedup_rows": 338}
-GOLDEN_TCR3 = {"n_subreads": 2802, "subread_bases": 344490,
-               "n_candidates": 2066, "n_accepted": 1703,
-               "n_distinct_bc": 1474, "umi_len_mode": 12, "n_clones": 105,
-               "n_clone_bcumi": 574}
-GOLDEN_SLIDESEQ = {"n_subreads": 5088, "subread_bases": 1335410,
-                   "n_candidates": 1704, "n_accepted": 1207,
-                   "n_distinct_bc": 701, "umi_len_mode": 9,
-                   "n_eds_rows": 1714}
 
 # published peaks of one H100 SXM: HBM bandwidth, and the float32 rate
 # outside the tensor cores, used as the ceiling of 32-bit scalar ops
@@ -92,6 +95,10 @@ PACKED16_OPS_PER_S = 67e12
 KERNELS = {   # name -> (source, TPU kernel it replaces)
     "chain": ("nanoranger_torch/csrc/chain.cu",
               "nanoranger_tpu/ops/pallas_chain.py:33"),
+    # the splice instantiation of the same source (the kernel's
+    # max_intron arm, pallas_chain.py:83-92), counted apart
+    "chain_splice": ("nanoranger_torch/csrc/chain.cu",
+                     "nanoranger_tpu/ops/pallas_chain.py:33"),
     "ed": ("nanoranger_torch/csrc/ed.cu",        # K2 :64 and K3 :93
            "nanoranger_tpu/ops/pallas_ed.py:64"),
     "verify": ("nanoranger_torch/csrc/verify.cu",
@@ -156,21 +163,25 @@ def compare(got, ref):
 # --------------------------------------------------------------------------
 # phase 2: each kernel against its plain version at main-path shapes
 
-def check_chain(dev, index, batch):
+def check_chain(dev, index, batch, preset="map-ont"):
+    """K1 against its plain version on the anchors of one read batch
+    aligned to `index` with `preset`, padded to 4096 columns (A = 4096)."""
     import numpy as np
     import torch
 
     from nanoranger_torch.align.aligner import (BANDWIDTH, MAX_GAP,
-                                                PanelAligner)
+                                                SPLICE_PEN, PanelAligner)
     from nanoranger_torch.align.minimizers import K
     from nanoranger_torch.io.encode import PAD
     from nanoranger_torch.ops.chain import chain_dp, chain_dp_plain
     L = 4096
-    codes = np.full((len(batch), L), PAD, np.int8)
+    codes = np.full((batch.codes.shape[0], L), PAD, np.int8)
     codes[:, :batch.codes.shape[1]] = batch.codes[:, :L]
-    ch = PanelAligner(index, dev)._chain(codes, batch.lengths)
+    aligner = PanelAligner(index, dev, preset=preset)
+    ch = aligner._chain(codes, batch.lengths)
     t, q, seg, valid = ch["t"], ch["q"], ch["seg"], ch["valid"]
-    args = (t, q, seg, valid, K, MAX_GAP, BANDWIDTH)
+    args = (t, q, seg, valid, K, MAX_GAP, BANDWIDTH, aligner.max_intron,
+            SPLICE_PEN)
     fk, pk, rk = chain_dp(*args)
     (fp, pp, rp), plain_ms = plain_ms_of(lambda: chain_dp_plain(*args))
     ms = cuda_ms(lambda: chain_dp(*args), 5)
@@ -181,11 +192,60 @@ def check_chain(dev, index, batch):
     mism = int((pk != pp).sum() + (rk != rp).sum() + (rel > 1e-5).sum())
     B, A = t.shape
     n_bytes = B * A * (4 * 3 + 1 + 4 * 3)
-    n_ops = n_valid * 64 * 16      # 64 window slots, ~16 flops each
-    return {"shape": [B, A], "valid_anchors": n_valid, "ms": ms,
-            "plain_ms": plain_ms, "mismatches": mism,
-            "max_abs_err": float(err.max()) if n_valid else 0.0,
-            "bound": bound(n_bytes, n_ops)}, ch
+    # 64 window slots, ~16 flops each; the intron arm adds ~12 (a subtract,
+    # four compares, two multiplies, two adds, log2, max, select)
+    n_ops = n_valid * 64 * (28 if aligner.max_intron else 16)
+    out = {"shape": [B, A], "valid_anchors": n_valid, "ms": ms,
+           "plain_ms": plain_ms, "mismatches": mism,
+           "max_abs_err": float(err.max()) if n_valid else 0.0,
+           "bound": bound(n_bytes, n_ops)}
+    if aligner.max_intron:
+        # parent links of the intron class: target gap beyond the band
+        has = pk >= 0
+        par = pk.clamp(min=0).long()
+        d = (t - t.gather(1, par)) - (q - q.gather(1, par))
+        out["splice_links"] = int((has & (d > BANDWIDTH)).sum())
+        out["links"] = int(has.sum())
+    return out, ch
+
+
+def synthetic_gene_reads(rng, n_reads=512, genome_len=1_000_000,
+                         n_genes=16):
+    """(index, batch): a random genome holding n_genes 3-exon genes (exons
+    400, 350 and 500, introns 3,000 and 12,000) and n_reads reads of their
+    spliced transcripts, each on a random strand, with random flanks of
+    20-80 bases and 2% substitutions."""
+    import types
+
+    import numpy as np
+
+    from nanoranger_torch.align.index import PanelIndex
+    from nanoranger_torch.io.encode import PAD, revcomp
+    exon_lens, intron_lens = (400, 350, 500), (3_000, 12_000)
+    genome = rng.integers(0, 4, genome_len).astype(np.int8)
+    span = sum(exon_lens) + sum(intron_lens)
+    tx = []
+    for g in np.linspace(10_000, genome_len - span - 10_000, n_genes):
+        pos, parts = int(g), []
+        for el, il in zip(exon_lens, (*intron_lens, 0)):
+            parts.append(genome[pos:pos + el])
+            pos += el + il
+        tx.append(np.concatenate(parts))
+    flank = lambda: rng.integers(0, 4, int(rng.integers(20, 80))).astype(
+        np.int8)
+    reads = []
+    for _ in range(n_reads):
+        r = tx[int(rng.integers(n_genes))].copy()
+        sub = rng.random(len(r)) < 0.02
+        r[sub] = (r[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+        r = np.concatenate([flank(), r, flank()])
+        reads.append(revcomp(r) if rng.integers(2) else r)
+    lengths = np.asarray([len(r) for r in reads], np.int32)
+    codes = np.full((n_reads, int(lengths.max())), PAD, np.int8)
+    for i, r in enumerate(reads):
+        codes[i, :len(r)] = r
+    return (PanelIndex.build(["chr_syn"], [genome]),
+            types.SimpleNamespace(codes=codes, lengths=lengths))
 
 
 def flank_windows(dev, spec, index, batch, ch=None):
@@ -433,6 +493,9 @@ def collect(outdir, s, mode):
     g["umi_len_mode"] = (int(acc.umi.str.len().mode()[0]) if len(acc)
                          else 0)
     if mode == "5p10XGEX":
+        from nanoranger_torch.io.bam import read_bam
+        _, _, records = read_bam(f"{outdir}/{s}_genome_tagged.bam")
+        g["n_tagged_bam"] = sum(1 for _ in records)
         g["n_dedup_rows"] = int(len(pd.read_csv(
             f"{outdir}/{s}_bcumi_dedup.csv")))
     if mode == "5p10XTCR":
@@ -443,10 +506,13 @@ def collect(outdir, s, mode):
     if mode == "3pXCR_slideseq":
         g["n_eds_rows"] = int(len(pd.read_csv(
             f"{outdir}/{s}_eds_names.csv.gz")))
+    with open(f"{outdir}/{s}_runstats.json") as f:
+        g["runstats_stages"] = [r["stage"] for r in json.load(f)["stages"]]
     return g
 
 
-def run_mode(name, mode, infile, panel, wl, out, card, golden, expect):
+def run_mode(name, mode, infile, panel, genome, wl, out, card, golden,
+             expect):
     """One run of run_pipeline on the card with the launch counts set to 0
     just before and read just after. Returns (launches, failure or None)."""
     import torch
@@ -467,7 +533,7 @@ def run_mode(name, mode, infile, panel, wl, out, card, golden, expect):
         kernels.reset_launches()
         t0 = time.time()
         run_pipeline(mode, infile, out, "t", trns_ref=panel,
-                     genome_ref="/nonexistent", barcodes=wl, device="cuda")
+                     genome_ref=genome, barcodes=wl, device="cuda")
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(kernels.launches)
@@ -481,13 +547,15 @@ def run_mode(name, mode, infile, panel, wl, out, card, golden, expect):
           "wall_s": round(wall, 3), "reads": n_reads,
           "reads_per_s": round(n_reads / wall, 1), "launches": launches,
           "verify_rows_per_launch": verify_rows, "counts": got,
-          "stages": [{k: s[k] for k in ("stage", "seconds", "whitelist_s")
+          "stages": [{k: s[k] for k in ("stage", "seconds", "whitelist_s",
+                                        "records", "index_s", "align_s",
+                                        "cigar_s", "write_s")
                       if k in s} for s in stages]})
     bad = {k: (got.get(k), v) for k, v in golden.items() if got.get(k) != v}
     if bad:
         return launches, (f"run {name} differs from its golden "
                           f"(got, want): {bad}")
-    if min(got.values()) <= 0:
+    if min(v for v in got.values() if isinstance(v, int)) <= 0:
         return launches, f"run {name} left an empty table: {got}"
     idle = [k for k in expect if launches[k] <= 0]
     if idle:
@@ -612,6 +680,19 @@ def main() -> int:
             ("ed_plain_first", ed_first), ("verify", res["verify"]),
             ("verify_C118_k562", v_k562), ("sw", res["sw"])]
 
+    # ---- phase 2, the splice class at the genome stage's shapes (B=512)
+    mt_batch = next(fastq.iter_batches(S1026, 512, max_len=4096))
+    res["chain_splice"], _ = check_chain(dev, PanelIndex.from_fasta(MT_GENOME),
+                                         mt_batch, preset="splice")
+    g_index, g_batch = synthetic_gene_reads(np.random.default_rng(20261017))
+    r_syn, _ = check_chain(dev, g_index, g_batch, preset="splice")
+    rows += [("chain_splice_MT_chr", res["chain_splice"]),
+             ("chain_splice_3exon", r_syn)]
+    if r_syn["splice_links"] == 0:
+        print("chip_smoke: the splice class linked no anchor across an "
+              "intron on the 3-exon reads", file=sys.stderr)
+        return 1
+
     # ---- phase 2, the other modes' shapes
     v_index = PanelIndex.from_fasta(V_PANEL)
     c_index = PanelIndex.from_fasta(C_PANEL)
@@ -665,19 +746,34 @@ def main() -> int:
     with contextlib.ExitStack() as stack:
         tmp = lambda: stack.enter_context(
             tempfile.TemporaryDirectory(prefix="nr_smoke_"))
-        outs = {n: tmp() for n in ("k562", "tcr3", "slideseq", "rtx")}
+        with open(GOLDENS) as f:
+            goldens = {k: {g: v for g, v in d.items() if g != "mode"}
+                       for k, d in json.load(f)["samples"].items()}
         four = ("chain", "ed", "verify", "sw")
+        # the genome stage adds the splice instantiation of the chain DP
+        five = (*four, "chain_splice")
         runs = [
-            ("k562", "5p10XGEX", SAMPLE, PANEL, WHITELIST, GOLDEN, four),
-            ("tcr3", "5p10XTCR", TCR3, V_PANEL, WHITELIST, GOLDEN_TCR3, four),
-            ("slideseq", "3pXCR_slideseq", SLIDESEQ, C_PANEL, SLIDESEQ_WL,
-             GOLDEN_SLIDESEQ, four),
+            # (run, mode, sample, panel, genome, whitelist, golden, kernels)
+            ("k562", "5p10XGEX", SAMPLE, PANEL, PANEL, WHITELIST,
+             goldens["K562_Kasumi1_BCRABL1_RUNX1_RUNX1T1"], five),
+            ("1022", "5p10XGEX", S1022, MT_PANEL, MT_GENOME, WHITELIST,
+             goldens["1022_DNMT3A_RUNX1_SF3B1"], five),
+            ("1026", "5p10XGEX", S1026, MT_PANEL, MT_GENOME, WHITELIST,
+             goldens["1026_mtDNA_ASXL1_NRAS_SF3B1"], five),
+            ("car", "5p10XGEX", S_CAR, CAR_PANEL, CAR_PANEL, WHITELIST,
+             goldens["97_6_CAR"], five),
+            ("tcr3", "5p10XTCR", TCR3, V_PANEL, None, WHITELIST,
+             goldens["TCR3"], four),
+            ("slideseq", "3pXCR_slideseq", SLIDESEQ, C_PANEL, None,
+             SLIDESEQ_WL, goldens["slideseq_XCR"], four),
             # RTX has no adapter scan and no match: the chain DP alone
-            ("rtx", "RTX", TCR3, V_PANEL, None, {}, ("chain",)),
+            ("rtx", "RTX", TCR3, V_PANEL, None, None, {}, ("chain",)),
         ]
-        for name, mode, infile, panel, wl, golden, expect in runs:
-            by_run[name], why = run_mode(name, mode, infile, panel, wl,
-                                         outs[name], card, golden, expect)
+        outs = {run[0]: tmp() for run in runs}
+        for name, mode, infile, panel, genome, wl, golden, expect in runs:
+            by_run[name], why = run_mode(name, mode, infile, panel, genome,
+                                         wl, outs[name], card, golden,
+                                         expect)
             if why:
                 print(f"chip_smoke: {why}", file=sys.stderr)
                 return 1

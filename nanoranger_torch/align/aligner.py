@@ -1,9 +1,14 @@
-"""Transcript panel aligner: device seed -> chain, host records.
+"""Panel and genome aligner: device seed -> chain, host records.
 
-Counterpart of the JAX package's align/aligner.py for the map-ont preset
-(minimap2 `-aY --eqx -x map-ont --secondary=no`, reference
-scripts/align_trns.sh:9). The contract is the set of (qstart, qend, strand,
-ref, ref span) alignment records per read, primary plus supplementaries.
+Counterpart of the JAX package's align/aligner.py, for both of its presets:
+  - "map-ont" against transcript panels (minimap2 `-aY --eqx -x map-ont
+    --secondary=no`, reference scripts/align_trns.sh:9)
+  - "splice" against genomes (minimap2 `-x splice`, reference
+    scripts/align_genome.sh:9): the chain DP also admits an intron gap
+    class (large target gap, small query gap, log-penalised) up to
+    MAX_INTRON, and extract_exons splits each chain into exon blocks.
+The contract is the set of (qstart, qend, strand, ref, ref span) alignment
+records per read, primary plus supplementaries.
 
 Device (torch, on the aligner's device):
   1. sketch reads (align/minimizers.py)
@@ -15,10 +20,8 @@ Device (torch, on the aligner's device):
 
 Host (numpy): score/min-anchor filters and minimap2-style primary
 selection (greedy query-overlap masking: < 50% overlap with a better
-chain keeps a record as supplementary, otherwise it is dropped).
-
-The splice preset and exon extraction of the genome stage are not part of
-this package yet.
+chain keeps a record as supplementary, otherwise it is dropped); exon
+blocks of the splice preset.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ PREFIX_BITS = 20
 
 MAX_GAP = 5000        # minimap2 -g default band for map-ont chaining
 BANDWIDTH = 500       # minimap2 -r 500 (map-ont)
+MAX_INTRON = 200_000  # minimap2 -G 200k (-x splice)
+SPLICE_PEN = 6.0      # flat intron-open penalty (noncanonical-splice class)
 MIN_CHAIN_SCORE = 40  # minimap2 -m
 MIN_CHAIN_CNT = 3     # minimap2 -n
 OCC_CAP = 16          # per-minimizer occurrence cap (frequent-seed filter)
@@ -48,11 +53,12 @@ NEGF = -1e18
 
 
 def seed_and_chain(codes, lengths, prefix_start, prefix_count, windows,
-                   max_minimizers: int = 256):
+                   max_minimizers: int = 256, max_intron: int = 0):
     """Per-read sorted anchors + chain DP results.
 
     codes (B, L) int8 and lengths (B,) int32 on the device of the index
-    tensors. Returns a dict of (B, A) tensors: t (local target coord),
+    tensors; max_intron > 0 turns on the splice gap class. Returns a dict
+    of (B, A) tensors: t (local target coord),
     q (chain coord), qpos (original read position, -1 on dead slots),
     seg (= ref_id*2 + rel_strand; SEG_INVALID on dead slots), strand,
     valid, f, parent, root; and overflow (B,) bool."""
@@ -110,7 +116,8 @@ def seed_and_chain(codes, lengths, prefix_start, prefix_count, windows,
     valid = seg != SEG_INVALID
     strand = torch.where(valid, seg & 1, 0)
 
-    f, parent, root = chain_dp(t, q, seg, valid, K, MAX_GAP, BANDWIDTH)
+    f, parent, root = chain_dp(t, q, seg, valid, K, MAX_GAP, BANDWIDTH,
+                               max_intron, SPLICE_PEN)
     return {"t": t, "q": q, "qpos": qp_flat, "seg": seg, "strand": strand,
             "valid": valid, "f": f, "parent": parent, "root": root,
             "overflow": overflow}
@@ -258,14 +265,50 @@ def extract_records(chain_out: dict, index: PanelIndex) -> AlignmentRecords:
         score[sel], n_anchors[sel], gidx[sel], mapq[sel])
 
 
+def extract_exons(chain_out: dict, records: AlignmentRecords,
+                  min_intron: int = 50) -> list:
+    """Per-record exon blocks from the chain anchors (splice preset).
+
+    Returns, for each record, a list of (t_lo, t_hi, q_lo, q_hi) segments
+    in stored-read orientation (q coords are chain coords, which equal the
+    stored-orientation positions for both strands), split wherever the
+    target gap between consecutive anchors exceeds the query gap by
+    >= min_intron, the intron signature. Single-exon records get one
+    block. The genome stage turns the gaps into N CIGAR ops."""
+    if len(records) == 0:
+        return []
+    A = chain_out["t"].shape[1]
+    g = records.root.astype(np.int64)
+    rows, row_of = np.unique(g // A, return_inverse=True)
+    sel = torch.from_numpy(rows).to(chain_out["t"].device)
+    t, q, root, valid = (chain_out[k][sel].cpu().numpy()
+                         for k in ("t", "q", "root", "valid"))
+    out = []
+    for r, root_local in zip(row_of, g % A):
+        m = (root[r] == root_local) & valid[r]
+        ts, qs = t[r][m], q[r][m]      # (seg, t, q)-sorted: t ascending
+        cut = np.flatnonzero(np.diff(ts) - np.diff(qs) >= min_intron) + 1
+        lo = np.r_[0, cut]
+        hi = np.r_[cut - 1, len(ts) - 1]
+        out.append([(int(ts[a]), int(ts[b]) + K, int(qs[a]), int(qs[b]) + K)
+                    for a, b in zip(lo, hi)])
+    return out
+
+
 class PanelAligner:
-    """End-to-end wrapper for the map-ont preset on one device."""
+    """End-to-end wrapper on one device.
+
+    preset "map-ont" (panels/transcriptomes) or "splice" (genomes:
+    intron-tolerant chaining, minimap2 -x splice analogue)."""
 
     def __init__(self, index: PanelIndex, device,
-                 max_minimizers: int | None = None):
+                 max_minimizers: int | None = None, preset: str = "map-ont"):
+        if preset not in ("map-ont", "splice"):
+            raise ValueError(f"unknown preset {preset!r}")
         self.index = index
         self.device = torch.device(device)
         self.max_minimizers = max_minimizers
+        self.max_intron = MAX_INTRON if preset == "splice" else 0
         self._idx = prepare_index_arrays(index, self.device)
 
     def _chain(self, codes: np.ndarray, lengths: np.ndarray) -> dict:
@@ -278,7 +321,7 @@ class PanelAligner:
         dev_lengths = torch.from_numpy(
             np.asarray(lengths, np.int32)).to(self.device)
         out = seed_and_chain(dev_codes, dev_lengths, *self._idx,
-                             max_minimizers=m)
+                             max_minimizers=m, max_intron=self.max_intron)
         # the uploaded batch rides along for the flank scan
         out["dev_codes"] = dev_codes
         out["dev_lengths"] = dev_lengths
@@ -287,3 +330,10 @@ class PanelAligner:
     def align(self, codes: np.ndarray, lengths: np.ndarray
               ) -> AlignmentRecords:
         return extract_records(self._chain(codes, lengths), self.index)
+
+    def align_with_exons(self, codes: np.ndarray, lengths: np.ndarray,
+                         min_intron: int = 50):
+        """(records, exon blocks per record): the genome stage's entry."""
+        out = self._chain(codes, lengths)
+        rec = extract_records(out, self.index)
+        return rec, extract_exons(out, rec, min_intron=min_intron)

@@ -7,6 +7,15 @@
 // 0.01*k*dd + 0.5*log2(dd) in float32, the parent is the LAST argmax of the
 // window and the chain root rides along, so no pointer chase is needed.
 //
+// Two gap classes, chosen at compile time (template <bool SPLICE>): the
+// map-ont class above, and with SPLICE the minimap2 `-x splice` intron
+// class beside it: a target gap beyond the band (bandwidth < dt-dq <=
+// max_intron) with a small query gap costs
+// 0.01*k*dq + splice_pen + 0.5*log2(dt-dq), and the map-ont class wins
+// where both admit a predecessor. The map-ont instantiation carries no
+// trace of the intron arm, so its code and times stay those of a
+// one-class kernel.
+//
 // What bounds it: the anchor axis is a dependent chain (anchor i needs f of
 // the 64 before it), so the work per read is sequential and the card is
 // bound by latency, not by bytes (25 bytes in and out an anchor slot, ~210 MB
@@ -43,11 +52,13 @@ __device__ __forceinline__ int warp_max_i(int v) {
     return v;
 }
 
+template <bool SPLICE>
 __device__ __forceinline__ float candidate(float ti, float qi, int si,
                                            float tw, float qw, int sw,
                                            float fw, float k_span,
                                            float gap_coef, float max_gap,
-                                           float bandwidth) {
+                                           float bandwidth, float max_intron,
+                                           float splice_pen) {
     float dt = __fsub_rn(ti, tw);
     float dq = __fsub_rn(qi, qw);
     float dd = fabsf(__fsub_rn(dq, dt));
@@ -56,11 +67,27 @@ __device__ __forceinline__ float candidate(float ti, float qi, int si,
     if (dd > 0.f)
         gap = __fadd_rn(__fmul_rn(gap_coef, dd),
                         __fmul_rn(0.5f, log2f(fmaxf(dd, 1.f))));
-    bool ok = (sw == si) && (fw > NEGF / 2) && (dt > 0.f) && (dq > 0.f) &&
-              (dt <= max_gap) && (dq <= max_gap) && (dd <= bandwidth);
-    return ok ? __fsub_rn(__fadd_rn(fw, dg), gap) : NEGF;
+    if constexpr (!SPLICE) {
+        bool ok = (sw == si) && (fw > NEGF / 2) && (dt > 0.f) &&
+                  (dq > 0.f) && (dt <= max_gap) && (dq <= max_gap) &&
+                  (dd <= bandwidth);
+        return ok ? __fsub_rn(__fadd_rn(fw, dg), gap) : NEGF;
+    } else {
+        const bool seg_eq = (sw == si) && (fw > NEGF / 2);
+        const bool ok_n = seg_eq && (dt > 0.f) && (dq > 0.f) &&
+                          (dt <= max_gap) && (dq <= max_gap) &&
+                          (dd <= bandwidth);
+        const float ds = __fsub_rn(dt, dq);
+        const bool ok_s = seg_eq && (dq > 0.f) && (dq <= max_gap) &&
+                          (ds > bandwidth) && (dt <= max_intron);
+        if (!ok_n && ok_s)  // (0.01*k*dq + pen) + 0.5*log2(max(dt-dq, 1))
+            gap = __fadd_rn(__fadd_rn(__fmul_rn(gap_coef, dq), splice_pen),
+                            __fmul_rn(0.5f, log2f(fmaxf(ds, 1.f))));
+        return (ok_n || ok_s) ? __fsub_rn(__fadd_rn(fw, dg), gap) : NEGF;
+    }
 }
 
+template <bool SPLICE>
 __global__ void chain_dp_kernel(const int* __restrict__ t,
                                 const int* __restrict__ q,
                                 const int* __restrict__ seg,
@@ -69,7 +96,8 @@ __global__ void chain_dp_kernel(const int* __restrict__ t,
                                 int* __restrict__ par_out,
                                 int* __restrict__ root_out, int B, int A,
                                 float k_span, float gap_coef, float max_gap,
-                                float bandwidth) {
+                                float bandwidth, float max_intron,
+                                float splice_pen) {
     const int read = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
     const int lane = threadIdx.x & 31;
     if (read >= B) return;  // the whole warp leaves together
@@ -103,12 +131,12 @@ __global__ void chain_dp_kernel(const int* __restrict__ t,
             if (vi) {
                 const int j0 = i - 64 + ((lane - i) & 63);
                 const int j1 = i - 64 + ((lane + 32 - i) & 63);
-                const float c0 = candidate(ti, qi, si, rt0, rq0, rs0, rf0,
-                                           k_span, gap_coef, max_gap,
-                                           bandwidth);
-                const float c1 = candidate(ti, qi, si, rt1, rq1, rs1, rf1,
-                                           k_span, gap_coef, max_gap,
-                                           bandwidth);
+                const float c0 = candidate<SPLICE>(
+                    ti, qi, si, rt0, rq0, rs0, rf0, k_span, gap_coef,
+                    max_gap, bandwidth, max_intron, splice_pen);
+                const float c1 = candidate<SPLICE>(
+                    ti, qi, si, rt1, rq1, rs1, rf1, k_span, gap_coef,
+                    max_gap, bandwidth, max_intron, splice_pen);
                 const float best = warp_max_f(fmaxf(c0, c1));
                 const int key = max(c0 == best ? j0 : -1, c1 == best ? j1 : -1);
                 const int bestj = warp_max_i(key);
@@ -142,18 +170,23 @@ __global__ void chain_dp_kernel(const int* __restrict__ t,
 
 }  // namespace
 
+// splice_pen arrives as a C float: the ctypes binding declares it
+// c_float (kernels.entry's n_float), so it is not cut to an int on the way.
+// max_intron == 0 runs the map-ont instantiation.
 extern "C" int chain_dp(const void* t, const void* q, const void* seg,
                         const void* valid, void* f, void* parent, void* root,
                         int B, int A, int k_span, int max_gap, int bandwidth,
-                        void* stream) {
+                        int max_intron, float splice_pen, void* stream) {
     if (B == 0 || A == 0) return 0;
     const int threads = 128;  // 4 reads per block
     const int blocks = (B + 3) / 4;
     // the plain version's 0.01 * k rounded once to float32
     const float gap_coef = (float)(0.01 * k_span);
-    chain_dp_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    auto kernel = max_intron > 0 ? chain_dp_kernel<true>
+                                 : chain_dp_kernel<false>;
+    kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const int*)t, (const int*)q, (const int*)seg, (const uint8_t*)valid,
         (float*)f, (int*)parent, (int*)root, B, A, (float)k_span, gap_coef,
-        (float)max_gap, (float)bandwidth);
+        (float)max_gap, (float)bandwidth, (float)max_intron, splice_pen);
     return (int)cudaGetLastError();
 }

@@ -42,7 +42,8 @@ SOURCES = {
     "sw_full": ("sw_full.cu", []),
 }
 
-launches = {name: 0 for name in SOURCES}
+# launches per library; chain.cu's splice instantiation counts apart
+launches = {name: 0 for name in (*SOURCES, "chain_splice")}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -121,20 +122,23 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def entry(lib_name: str, fn_name: str, n_ptr: int, n_int: int):
-    """A C entry point taking n_ptr device pointers, n_int ints and the
-    stream, returning a cudaError_t."""
+def entry(lib_name: str, fn_name: str, n_ptr: int, n_int: int,
+          n_float: int = 0):
+    """A C entry point taking n_ptr device pointers, n_int ints, n_float
+    floats and the stream, returning a cudaError_t. A float argument must be
+    counted in n_float: declared as an int, ctypes would cut it."""
     fn = getattr(library(lib_name), fn_name)
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_float] * n_float + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def launch(lib_name: str, fn, *args) -> None:
-    """Call a C entry point on the current stream; raise on its error."""
+def launch(lib_name: str, fn, *args, counter: str | None = None) -> None:
+    """Call a C entry point on the current stream; raise on its error. The
+    launch counts under `counter` (default: the library's name)."""
     stream = torch.cuda.current_stream().cuda_stream
-    launches[lib_name] += 1
+    launches[counter or lib_name] += 1
     err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{lib_name} kernel launch failed: cudaError_t "

@@ -9,6 +9,12 @@ and band limits. The parent is the LAST argmax of the window (torch.argmax
 returns the first, so neither version uses it) and the chain root is
 carried along.
 
+max_intron > 0 adds the minimap2 `-x splice` intron class: a predecessor
+with a small query gap (0 < dq <= max_gap) and a target gap beyond the band
+(bandwidth < dt - dq, dt <= max_intron) costs
+0.01*k*dq + splice_pen + 0.5*log2(dt - dq); where both classes admit a
+predecessor the map-ont one counts.
+
 `chain_dp` launches csrc/chain.cu for CUDA tensors and runs `chain_dp_plain`
 for CPU tensors; there is no fallback between the two.
 """
@@ -24,7 +30,8 @@ NEGF = -1e18
 
 
 def chain_dp_plain(t, q, seg, valid, k_span: int, max_gap: int,
-                   bandwidth: int):
+                   bandwidth: int, max_intron: int = 0,
+                   splice_pen: float = 6.0):
     """t, q, seg: (B, A) int32 sorted anchors; valid: (B, A) bool.
     Returns (f (B, A) float32, parent (B, A) int32, root (B, A) int32)."""
     B, A = t.shape
@@ -55,8 +62,16 @@ def chain_dp_plain(t, q, seg, valid, k_span: int, max_gap: int,
         dg = torch.clamp(torch.minimum(dq, dt), max=float(k_span))
         gap = gap_coef * dd + 0.5 * torch.log2(torch.clamp(dd, min=1.0))
         gap = torch.where(dd > 0, gap, torch.zeros_like(gap))
-        ok = (ws == si) & (wf > NEGF / 2) & (dt > 0) & (dq > 0) & \
+        seg_eq = (ws == si) & (wf > NEGF / 2)
+        ok = seg_eq & (dt > 0) & (dq > 0) & \
             (dt <= max_gap) & (dq <= max_gap) & (dd <= bandwidth)
+        if max_intron:
+            gap_s = gap_coef * dq + splice_pen + \
+                0.5 * torch.log2(torch.clamp(dt - dq, min=1.0))
+            ok_s = seg_eq & (dq > 0) & (dq <= max_gap) & \
+                (dt - dq > bandwidth) & (dt <= max_intron)
+            gap = torch.where(ok, gap, gap_s)
+            ok = ok | ok_s
         cand = torch.where(ok, (wf + dg) - gap, negf)
         best = cand.max(dim=1, keepdim=True).values
         bestg = torch.where(cand == best, sub, -1).max(dim=1,
@@ -72,11 +87,13 @@ def chain_dp_plain(t, q, seg, valid, k_span: int, max_gap: int,
     return f[:, G:].contiguous(), parent, roots[:, G:].contiguous()
 
 
-def chain_dp(t, q, seg, valid, k_span: int, max_gap: int, bandwidth: int):
+def chain_dp(t, q, seg, valid, k_span: int, max_gap: int, bandwidth: int,
+             max_intron: int = 0, splice_pen: float = 6.0):
     """Chain DP of (B, A) sorted anchors: the Hopper kernel on CUDA tensors,
     the plain version on CPU tensors."""
     if not t.is_cuda:
-        return chain_dp_plain(t, q, seg, valid, k_span, max_gap, bandwidth)
+        return chain_dp_plain(t, q, seg, valid, k_span, max_gap, bandwidth,
+                              max_intron, splice_pen)
     B, A = t.shape
     for name, x, dt in (("t", t, torch.int32), ("q", q, torch.int32),
                         ("seg", seg, torch.int32),
@@ -85,9 +102,10 @@ def chain_dp(t, q, seg, valid, k_span: int, max_gap: int, bandwidth: int):
     f = torch.empty((B, A), dtype=torch.float32, device=t.device)
     parent = torch.empty((B, A), dtype=torch.int32, device=t.device)
     root = torch.empty((B, A), dtype=torch.int32, device=t.device)
-    fn = kernels.entry("chain", "chain_dp", 7, 5)
+    fn = kernels.entry("chain", "chain_dp", 7, 6, n_float=1)
     kernels.launch("chain", fn, t.data_ptr(), q.data_ptr(), seg.data_ptr(),
                    valid.data_ptr(), f.data_ptr(), parent.data_ptr(),
                    root.data_ptr(), B, A, int(k_span), int(max_gap),
-                   int(bandwidth))
+                   int(bandwidth), int(max_intron), float(splice_pen),
+                   counter="chain_splice" if max_intron > 0 else "chain")
     return f, parent, root

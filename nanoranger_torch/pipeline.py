@@ -8,9 +8,11 @@ sort -> chain DP -> record extraction -> end extension -> adapter scan
 barcoded modes go on to the staged whitelist match (exact tiers where the
 whitelist has them, one-vs-all DP, banded UMI rescore) and their
 mode-specific tables; the clone modes run the native clonotyper over the
-subreads. The tagged-BAM genome stage of 5p10XGEX and sharding are not part
-of the package yet and raise. The artifacts are byte-identical to the JAX
-package's (after gunzip; pdfs and run statistics aside):
+subreads; 5p10XGEX with a genome that exists goes on to the genome stage
+(splice-preset alignment of the subreads, exon CIGARs, the CB/UB/XT-tagged
+BAM with its index). Sharding is not part of the package yet and raises.
+The artifacts are byte-identical to the JAX package's (after gunzip, the
+BAM after BGZF decompression; pdfs and run statistics aside):
 
   {sample}_deconcat.fastq.gz / _VDJ.fastq.gz     subreads
   {sample}_BCUMI.fasta.gz                        barcode candidates
@@ -19,6 +21,7 @@ package's (after gunzip; pdfs and run statistics aside):
   {sample}_barcode_scores.csv/.pdf, _knee*.pdf
   {sample}_bcumi_dedup.csv
   {sample}_bc_read_count.csv, _bc_count.json, _quads.json.gz, _gex.mtx.gz (+sidecars)
+  {sample}_genome_tagged.bam (+ .bai), _trns_ct.csv
   {sample}_clones.txt.gz, _cloneID.txt.gz, _clones_filtered.csv,
   {sample}_cloneID_filtered.csv.gz, _clone_bcumi.csv.gz
 
@@ -33,7 +36,8 @@ Entry points run on CUDA unless the caller passes device="cpu"
         --infile data/samples/K562_Kasumi1_BCRABL1_RUNX1_RUNX1T1.fastq.gz \\
         --outdir out --expname k562 \\
         --trns_ref data/RUNX1_RUNX1T1_ABL1_BCR.fa \\
-        --genome_ref /nonexistent --barcodes data/737K-august-2016.txt.gz
+        --genome_ref data/RUNX1_RUNX1T1_ABL1_BCR.fa \\
+        --barcodes data/737K-august-2016.txt.gz
 """
 
 from __future__ import annotations
@@ -41,8 +45,12 @@ from __future__ import annotations
 import argparse
 import gzip
 import hashlib
+import heapq
 import json
 import os
+import pickle
+import re
+import tempfile
 import time
 
 import numpy as np
@@ -53,10 +61,12 @@ from . import chemistry
 from .align.aligner import PanelAligner, extract_records
 from .align.index import PanelIndex
 from .io import fastq, whitelist
+from .io.bam import BAMWriter
 from .io.candidate_store import CandidateStore
-from .io.encode import decode, encode_batch
+from .io.encode import COMPLEMENT, decode, encode_batch
 from .io.fasta import FastaWriter, iter_fasta
 from .ops.extend import extend_records_host
+from .runtime.native_lib import banded_align_batch
 from .stages import clones as clone_stage
 from .stages import counting
 from .stages.barcode import ACCEPT, BAD_UMI, LOW_AS, BarcodeMatcher
@@ -349,6 +359,140 @@ def dedup_outputs(spec, df, res, outdir, sample, knee_umi_name="knee"):
     return table
 
 
+def genome_stage(spec, outdir, sample, genome_ref, tag_map, device,
+                 batch_size=512, force=False):
+    """Align subreads to the genome with the splice preset and write the
+    CB/UB/XT-tagged BAM with its .bai and the per-transcript counts
+    (reference align_genome.sh `minimap2 -x splice` + utils.py:801-827).
+    Intron-spanning chains are split into exon blocks
+    (align/aligner.extract_exons); each exon is base-level aligned by the
+    native banded DP and the gaps between exons become N CIGAR ops.
+
+    Streamed external sort: each input batch becomes one coordinate-sorted
+    spill of finished records (CIGARs included, so the merge is IO only),
+    and a k-way heap merge writes the BAM. Peak memory is one batch of
+    records plus the merge heads.
+
+    Returns the record count and the seconds of its parts: index build,
+    alignment (splice chain DP on the device, records, exon blocks), the
+    banded DP and CIGARs of the exons, and the merge into the BAM."""
+    done = [f"{outdir}/{sample}_genome_tagged.bam",
+            f"{outdir}/{sample}_genome_tagged.bam.bai",
+            f"{outdir}/{sample}_trns_ct.csv"]
+    if not force and all(os.path.isfile(p) for p in done):
+        log("resume: tagged genome BAM present, skipping genome stage")
+        return -1, {}
+    t0 = time.time()
+    gindex = PanelIndex.from_fasta(genome_ref)
+    galigner = PanelAligner(gindex, device, preset="splice")
+    parts = {"index_s": time.time() - t0, "align_s": 0.0, "cigar_s": 0.0}
+    sub_path = f"{outdir}/{sample}_deconcat.fastq.gz"
+    cig_re = re.compile(r"(\d+)([=XIDN])")
+    spills: list = []
+    n_rows = 0
+    all_trns: list = []
+    tmpdir = tempfile.mkdtemp(prefix="nr_genome_", dir=outdir)
+
+    def finish_rows(rows):
+        """rows -> BAM-ready tuples with base-level CIGARs."""
+        q_segs, t_segs, seg_of = [], [], []
+        for (rid, ts, flag, name, blocks, codes, qual, _mq) in rows:
+            stored = COMPLEMENT[codes][::-1] if flag & 16 else codes
+            lo = len(q_segs)
+            for (t_lo, t_hi, q_lo, q_hi) in blocks:
+                q_segs.append(stored[q_lo:q_hi])
+                t_segs.append(gindex.seq_codes[rid][t_lo:t_hi])
+            seg_of.append(slice(lo, len(q_segs)))
+        cigars, scores, nms = banded_align_batch(q_segs, t_segs, band=160)
+        out = []
+        for k, (rid, ts, flag, name, blocks, codes, qual, mq) in \
+                enumerate(rows):
+            cb, ub, xt = tag_map[name]
+            if flag & 16:
+                stored = COMPLEMENT[codes][::-1]
+                squal = qual[::-1]
+            else:
+                stored, squal = codes, qual
+            sl = seg_of[k]
+            cig = []
+            if blocks[0][2]:
+                cig.append((blocks[0][2], "S"))
+            as_sum = nm_sum = 0
+            for e, si in enumerate(range(sl.start, sl.stop)):
+                if e:
+                    t_gap = blocks[e][0] - blocks[e - 1][1]
+                    q_gap = blocks[e][2] - blocks[e - 1][3]
+                    if t_gap > 0:
+                        cig.append((t_gap, "N"))
+                    if q_gap > 0:
+                        cig.append((q_gap, "I"))
+                cig += [(int(n), op) for n, op in
+                        cig_re.findall(cigars[si])]
+                as_sum += int(scores[si])
+                nm_sum += int(nms[si])
+            tail = len(stored) - blocks[-1][3]
+            if tail:
+                cig.append((tail, "S"))
+            out.append((rid, ts, flag, name, cig, stored, squal, mq,
+                        {"NM": nm_sum, "AS": as_sum,
+                         "CB": cb, "UB": ub, "XT": xt}))
+        return out
+
+    for bi, batch in enumerate(
+            fastq.iter_batches(sub_path, batch_size, max_len=4096)):
+        ta = time.time()
+        rec, exons = galigner.align_with_exons(batch.codes, batch.lengths)
+        prim = rec.flag < 20                     # utils.py:812
+        rows = []
+        for r in np.where(prim)[0]:
+            i = int(rec.read_idx[r])
+            name = batch.names[i]
+            if name not in tag_map:
+                continue
+            rows.append((int(rec.ref_id[r]), int(rec.tstart[r]),
+                         int(rec.flag[r]), name, exons[r],
+                         batch.codes[i, :batch.lengths[i]].copy(),
+                         batch.quals[i], int(rec.mapq[r])))
+        rows.sort(key=lambda x: (x[0], x[1]))
+        tb = time.time()
+        done_rows = finish_rows(rows)
+        parts["align_s"] += tb - ta
+        parts["cigar_s"] += time.time() - tb
+        n_rows += len(done_rows)
+        path = os.path.join(tmpdir, f"spill_{bi}.pkl")
+        with open(path, "wb") as f:
+            for row in done_rows:
+                pickle.dump(row, f, protocol=4)
+        spills.append(path)
+
+    def read_spill(path):
+        with open(path, "rb") as f:
+            while True:
+                try:
+                    yield pickle.load(f)
+                except EOFError:
+                    return
+
+    tw = time.time()
+    bam_path = f"{outdir}/{sample}_genome_tagged.bam"
+    with BAMWriter(bam_path, gindex.names,
+                   [len(s) for s in gindex.seq_codes], index=True) as w:
+        merged = heapq.merge(*[read_spill(p) for p in spills],
+                             key=lambda row: (row[0], row[1]))
+        for (rid, ts, flag, name, cig, stored, squal, mq, tags) in merged:
+            w.write(name, flag, rid, ts, mq, cig, stored, squal, tags=tags)
+            all_trns.append(tags["XT"])
+    for p in spills:
+        os.unlink(p)
+    os.rmdir(tmpdir)
+    counting.trans_counts_table(all_trns).to_csv(
+        f"{outdir}/{sample}_trns_ct.csv", index=None)
+    parts["write_s"] = time.time() - tw
+    log(f"genome stage: {n_rows} tagged records → {bam_path} "
+        f"(streamed {len(spills)}-spill merge, {time.time() - t0:.1f}s)")
+    return n_rows, {k: round(v, 3) for k, v in parts.items()}
+
+
 def _load_whitelist(path, spec_name):
     if not path or not os.path.isfile(path):
         raise SystemExit(
@@ -357,6 +501,25 @@ def _load_whitelist(path, spec_name):
             "(.txt/.txt.gz/.tsv.gz) or a cell-called 10x .h5.")
     min_genes = 4 if spec_name == "3p10XTCR_nuc" else 20
     return whitelist.load(path, min_genes=min_genes)
+
+
+def _tag_map_from_df(df):
+    """name -> (CB, UB, XT) for accepted reads; XT parsed from the decon
+    read name {qname}_{qstrt}_{qend}_{flag}_{trans}.
+
+    Deliberate fix of a reference defect: the reference takes
+    `name.split('_')[4]` (utils.py:745), which truncates transcript names
+    containing '_' (the bundled panels have such names, e.g.
+    `RUNX1T1-204|ENST00000422361.6_2450`). The transcript is the last
+    field, so joining parts[4:] recovers it exactly."""
+    out = {}
+    for name, bc, umi, status in zip(df.name, df.bc, df.umi, df.status):
+        if status != ACCEPT:
+            continue
+        parts = name.split("_")
+        trns = "_".join(parts[4:]) if len(parts) > 4 else ""
+        out[name] = (bc, umi, trns)
+    return out
 
 
 def _v_panel_paths(mode, xpecies, trns_ref):
@@ -423,11 +586,6 @@ def run_pipeline(mode, infile, outdir, sample, trns_ref=None, genome_ref=None,
         genome_ref = os.path.join(DATA_DIR, dflt[1])
     if dflt[2] and not barcodes:
         barcodes = os.path.join(DATA_DIR, dflt[2])
-    if mode == "5p10XGEX" and genome_ref and os.path.isfile(genome_ref):
-        raise NotImplementedError(
-            f"genome_ref {genome_ref!r}: the tagged-BAM genome stage arrives "
-            "with the genome slice of the port; pass a genome_ref that does "
-            "not exist to stop after dedup")
     os.makedirs(outdir, exist_ok=True)
 
     tele = Telemetry(mode, infile, dev)
@@ -499,6 +657,13 @@ def run_pipeline(mode, infile, outdir, sample, trns_ref=None, genome_ref=None,
     if mode == "5p10XGEX":
         dedup_outputs(spec, df, res, outdir, sample)
         tele.stage("dedup", time.time() - ts)
+        if genome_ref and os.path.isfile(genome_ref):
+            ts = time.time()
+            n_bam, parts = genome_stage(spec, outdir, sample, genome_ref,
+                                        _tag_map_from_df(df), dev,
+                                        force=force)
+            tele.stage("genome_tag", time.time() - ts, records=n_bam,
+                       **parts)
     elif mode in ("5p10XTCR", "3p10XTCR_nuc"):
         dedup_outputs(spec, df, res, outdir, sample, knee_umi_name="knee_UMI")
         tele.stage("dedup", time.time() - ts)

@@ -1,5 +1,7 @@
 """The JAX-free host modules the PyTorch port carries as its own copies
-(chemistry, io, stages/counting) give what the JAX package's give."""
+(chemistry, io, stages/counting) give what the JAX package's give; the
+tagged-BAM writer and reader (io/bam.py) and the downstream readers of the
+BAM (downstream/*) hold the same code as the JAX package's."""
 
 import dataclasses
 import os
@@ -13,10 +15,19 @@ from nanoranger_tpu.io import encode as jax_encode
 from nanoranger_tpu.io import fasta as jax_fasta
 from nanoranger_tpu.io import fastq as jax_fastq
 from nanoranger_tpu.io import whitelist as jax_whitelist
+from nanoranger_tpu.downstream import fusion_gene as jax_fusion_gene
+from nanoranger_tpu.downstream import isoforms as jax_isoforms
+from nanoranger_tpu.downstream import pileup as jax_pileup
+from nanoranger_tpu.downstream import read_stats as jax_read_stats
+from nanoranger_tpu.io import bam as jax_bam
 from nanoranger_tpu.stages import counting as jax_counting
 
+from test_torch_vdj import _code_of
+
 from nanoranger_torch import chemistry
-from nanoranger_torch.io import encode, fasta, fastq, whitelist
+from nanoranger_torch.downstream import (fusion_gene, isoforms, pileup,
+                                         read_stats)
+from nanoranger_torch.io import bam, encode, fasta, fastq, whitelist
 from nanoranger_torch.io.candidate_store import CandidateStore
 from nanoranger_torch.stages import counting
 
@@ -103,3 +114,11 @@ def test_umi_dedup_table_equal(rng):
     assert got.equals(want)
     assert counting.barcode_scores_table(np.arange(30) % 17).equals(
         jax_counting.barcode_scores_table(np.arange(30) % 17))
+
+
+@pytest.mark.parametrize("port,ref", [
+    (bam, jax_bam), (fusion_gene, jax_fusion_gene), (isoforms, jax_isoforms),
+    (pileup, jax_pileup), (read_stats, jax_read_stats)],
+    ids=["bam", "fusion_gene", "isoforms", "pileup", "read_stats"])
+def test_bam_and_downstream_copies_hold_the_same_code(port, ref):
+    assert _code_of(port) == _code_of(ref)

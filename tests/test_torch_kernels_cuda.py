@@ -1,6 +1,7 @@
 """The port's five Hopper kernel libraries against their plain PyTorch
 versions on the card, at ragged shapes the main paths do not exercise
-(chip_smoke.py holds them at the main-path shapes). Every test is marked `cuda` and skips
+(chip_smoke.py holds them at the main-path shapes); the chain DP in both of
+its gap classes. Every test is marked `cuda` and skips
 without a card. The file imports neither JAX nor the JAX package, so on a
 machine with a card and no JAX it runs as
 
@@ -60,6 +61,62 @@ def test_chain_kernel(dev, B, A):
     _equal((p, r), (pp, rp))
     v = args[3]
     torch.testing.assert_close(f[v], fp[v], rtol=1e-5, atol=0)
+
+
+def _intron_anchors(rng, B, A, n_segs=4):
+    """(seg, t, q)-sorted anchors; within each seg the later anchors jump by
+    an intron-sized target gap, so the splice class links across it."""
+    t = np.zeros((B, A), np.int32)
+    q = np.zeros((B, A), np.int32)
+    seg = np.full((B, A), 1 << 30, np.int32)
+    valid = np.zeros((B, A), bool)
+    for b in range(B):
+        n = int(rng.integers(1, A))
+        sg = np.sort(rng.integers(0, n_segs, n)).astype(np.int32)
+        qq = rng.integers(0, 3000, n)
+        tt = qq + rng.integers(-30, 30, n)
+        for s in np.unique(sg):
+            m = np.flatnonzero(sg == s)
+            for cut in np.sort(rng.choice(3000, 2, replace=False)):
+                tt[m[qq[m] > cut]] += int(rng.integers(600, 150_000))
+        tt = np.maximum(tt, 0)
+        order = np.lexsort((qq, tt, sg))
+        t[b, :n], q[b, :n], seg[b, :n] = tt[order], qq[order], sg[order]
+        valid[b, :n] = True
+    return t, q, seg, valid
+
+
+@pytest.mark.parametrize("B,A", [(37, 300), (5, 4096), (512, 4096)])
+def test_chain_kernel_splice(dev, B, A):
+    t, q, seg, valid = _intron_anchors(np.random.default_rng(B + A), B, A)
+    args = [torch.from_numpy(a).to(dev) for a in (t, q, seg, valid)]
+    before = dict(kernels.launches)
+    f, p, r = chain_dp(*args, 15, 5000, 500, 200_000, 6.0)
+    assert kernels.launches["chain_splice"] == before["chain_splice"] + 1
+    assert kernels.launches["chain"] == before["chain"]
+    fp, pp, rp = chain_dp_plain(*args, 15, 5000, 500, 200_000, 6.0)
+    _equal((p, r), (pp, rp))
+    v = args[3]
+    torch.testing.assert_close(f[v], fp[v], rtol=1e-5, atol=0)
+    pn = p.cpu().numpy()
+    b, i = np.nonzero(pn >= 0)
+    j = pn[b, i]
+    splice = (t[b, i] - t[b, j]) - (q[b, i] - q[b, j]) > 500
+    assert splice.sum() > 0                   # the intron arm was taken
+
+
+def test_chain_kernel_takes_a_float_splice_pen(dev):
+    """A float splice_pen reaches the kernel whole: cut to an int on the way
+    (a c_int argument), 6.5 would score as 6."""
+    t, q, seg, valid = _intron_anchors(np.random.default_rng(7), 64, 512)
+    args = [torch.from_numpy(a).to(dev) for a in (t, q, seg, valid)]
+    f65, p65, _ = chain_dp(*args, 15, 5000, 500, 200_000, 6.5)
+    fp65, pp65, _ = chain_dp_plain(*args, 15, 5000, 500, 200_000, 6.5)
+    f6, _, _ = chain_dp(*args, 15, 5000, 500, 200_000, 6.0)
+    _equal((p65,), (pp65,))
+    v = args[3]
+    torch.testing.assert_close(f65[v], fp65[v], rtol=1e-5, atol=0)
+    assert bool((f65[v] < f6[v]).any())
 
 
 @pytest.mark.parametrize("W,m", [(100, 51), (37, 14), (128, 64), (129, 30),

@@ -21,7 +21,7 @@ import torch
 
 import nanoranger_torch
 from nanoranger_torch import pipeline
-from nanoranger_torch.io import whitelist
+from nanoranger_torch.io import bam, whitelist
 from nanoranger_torch.stages import barcode
 
 torch.set_num_threads(1)
@@ -37,21 +37,28 @@ N_READS = 200
 
 
 def _hash_artifacts(outdir):
+    """sha1 of each artifact's content: gunzipped, a BAM after BGZF
+    decompression."""
     out = {}
     for f in sorted(os.listdir(outdir)):
         p = os.path.join(outdir, f)
         if f.endswith((".pdf", "_runstats.json")) or f.endswith(".tmp"):
             continue  # pdfs embed timestamps; runstats is timings
-        opener = gzip.open if f.endswith(".gz") else open
-        with opener(p, "rb") as fh:
-            out[f] = hashlib.sha1(fh.read()).hexdigest()
+        if f.endswith(".bam"):
+            data = bam._bgzf_decompress(p)
+        else:
+            with (gzip.open if f.endswith(".gz") else open)(p, "rb") as fh:
+                data = fh.read()
+        out[f] = hashlib.sha1(data).hexdigest()
     return out
 
 
-def _prefix_and_whitelist(tmp_path):
-    with gzip.open(SAMPLE, "rt") as f:
+def _prefix_and_whitelist(tmp_path, sample=SAMPLE, n_random=6000):
+    """An N_READS prefix of `sample` and a whitelist of n_random seeded
+    rows of the 737K list plus every barcode the prefix carries."""
+    with gzip.open(sample, "rt") as f:
         lines = [next(f) for _ in range(4 * N_READS)]
-    fq = str(tmp_path / "k562_prefix.fastq.gz")
+    fq = str(tmp_path / "prefix.fastq.gz")
     with gzip.open(fq, "wt") as g:
         g.writelines(lines)
     bcs = whitelist.load(WL)
@@ -64,7 +71,7 @@ def _prefix_and_whitelist(tmp_path):
             carried.update(s[i:i + 16] for i in range(len(s) - 15)
                            if s[i:i + 16] in known)
     rng = np.random.default_rng(20261016)
-    rows = set(bcs[rng.choice(len(bcs), 6000, replace=False)].tolist())
+    rows = set(bcs[rng.choice(len(bcs), n_random, replace=False)].tolist())
     rows |= carried
     assert 100 < len(carried) and len(rows) <= 8192
     wl_path = str(tmp_path / "wl.txt")
@@ -110,7 +117,8 @@ def test_import_leaves_jax_out():
             " or m.startswith(('jax.', 'jaxlib', 'nanoranger_tpu'))]\n"
             "assert not bad, bad\n"
             "for m in ('vdj.caller', 'vdj.cdr3', 'vdj.clonotype',"
-            " 'runtime.native_lib', 'stages.clones'):\n"
+            " 'runtime.native_lib', 'stages.clones', 'io.bam',"
+            " 'downstream.pileup', 'downstream.fusion_gene'):\n"
             "    assert 'nanoranger_torch.' + m in sys.modules, m\n"
             "print(len([m for m in sys.modules"
             " if m.startswith('nanoranger_torch')]))\n")
@@ -165,8 +173,6 @@ def test_entry_points_refuse_the_cpu_fallback(tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(genome_ref=None), "genome"),      # the mode's default genome
-    (dict(genome_ref=os.path.join(DATA, "MT_chr.fa")), "genome"),
     (dict(wl_shards=2), "shards"),
     (dict(data_shards=2), "shards"),
 ])
