@@ -11,7 +11,10 @@ Phases, each of which must pass or the script exits non-zero:
                genome stage's (512 reads of 1026_mtDNA_ASXL1_NRAS_SF3B1
                against MT_chr.fa, 512 synthetic 3-exon reads against a
                synthetic genome; each must link some anchors across an
-               intron), then the other modes' (chain DP on
+               intron), the chain DP in both classes on 2048 reads with
+               no valid slot and on 256 reads valid in all 4096 (the
+               walk's floor and the per-step latency), then the other
+               modes' (chain DP on
                the V and C panels, the adapter scan at every mode's window
                and pattern with windows cut from TCR3 and slideseq reads,
                the one-vs-all DP at core 32 against the full slideseq list,
@@ -129,6 +132,9 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    # hold the stream ~5 ms so the host queues every launch before the
+    # first runs: the time is the card's, not the host's enqueue rate
+    torch.cuda._sleep(10_000_000)
     a.record()
     for _ in range(reps):
         fn()
@@ -163,50 +169,93 @@ def compare(got, ref):
 # --------------------------------------------------------------------------
 # phase 2: each kernel against its plain version at main-path shapes
 
-def check_chain(dev, index, batch, preset="map-ont"):
-    """K1 against its plain version on the anchors of one read batch
-    aligned to `index` with `preset`, padded to 4096 columns (A = 4096)."""
+def longest_seg_run(seg, valid) -> int:
+    """The most valid anchors in one run of one seg (slot order, invalid
+    slots skipped) over all reads: the longest chain that a split of the
+    reads at seg boundaries would leave to one warp."""
     import numpy as np
-    import torch
+    best = 0
+    for s, v in zip(seg.cpu().numpy(), valid.cpu().numpy()):
+        x = s[v]
+        if len(x):
+            cuts = np.flatnonzero(np.diff(x)) + 1
+            best = max(best, int(np.diff(np.r_[0, cuts, len(x)]).max()))
+    return best
 
-    from nanoranger_torch.align.aligner import (BANDWIDTH, MAX_GAP,
-                                                SPLICE_PEN, PanelAligner)
+
+def check_chain_rows(t, q, seg, valid, max_intron):
+    """K1 against its plain version on one (B, A) batch of anchors: f at
+    every slot, parents and roots must be equal."""
+    from nanoranger_torch.align.aligner import BANDWIDTH, MAX_GAP, SPLICE_PEN
     from nanoranger_torch.align.minimizers import K
-    from nanoranger_torch.io.encode import PAD
     from nanoranger_torch.ops.chain import chain_dp, chain_dp_plain
-    L = 4096
-    codes = np.full((batch.codes.shape[0], L), PAD, np.int8)
-    codes[:, :batch.codes.shape[1]] = batch.codes[:, :L]
-    aligner = PanelAligner(index, dev, preset=preset)
-    ch = aligner._chain(codes, batch.lengths)
-    t, q, seg, valid = ch["t"], ch["q"], ch["seg"], ch["valid"]
-    args = (t, q, seg, valid, K, MAX_GAP, BANDWIDTH, aligner.max_intron,
-            SPLICE_PEN)
+    args = (t, q, seg, valid, K, MAX_GAP, BANDWIDTH, max_intron, SPLICE_PEN)
     fk, pk, rk = chain_dp(*args)
     (fp, pp, rp), plain_ms = plain_ms_of(lambda: chain_dp_plain(*args))
-    ms = cuda_ms(lambda: chain_dp(*args), 5)
-    v = valid
-    n_valid = int(v.sum())
-    err = (fk[v] - fp[v]).abs()
-    rel = err / fp[v].abs().clamp(min=1.0)
-    mism = int((pk != pp).sum() + (rk != rp).sum() + (rel > 1e-5).sum())
+    ms = cuda_ms(lambda: chain_dp(*args), 20)
+    per_read = valid.sum(dim=1)
+    n_valid = int(per_read.sum())
+    max_valid = int(per_read.max())
+    mism = int((fk != fp).sum() + (pk != pp).sum() + (rk != rp).sum())
     B, A = t.shape
-    n_bytes = B * A * (4 * 3 + 1 + 4 * 3)
+    # what these inputs need: the valid flag of every slot, t, q and seg of
+    # the valid slots only (no other slot changes an output), and f, parent
+    # and root of every slot written
+    n_bytes = B * A * (1 + 4 * 3) + n_valid * 4 * 3
     # 64 window slots, ~16 flops each; the intron arm adds ~12 (a subtract,
     # four compares, two multiplies, two adds, log2, max, select)
-    n_ops = n_valid * 64 * (28 if aligner.max_intron else 16)
-    out = {"shape": [B, A], "valid_anchors": n_valid, "ms": ms,
+    n_ops = n_valid * 64 * (28 if max_intron else 16)
+    out = {"shape": [B, A], "valid_anchors": n_valid,
+           "max_valid": max_valid,
+           "max_seg_run": longest_seg_run(seg, valid), "ms": ms,
+           "ns_per_valid_step": ms * 1e6 / max_valid if max_valid else None,
            "plain_ms": plain_ms, "mismatches": mism,
-           "max_abs_err": float(err.max()) if n_valid else 0.0,
+           "max_abs_err": float((fk[valid] - fp[valid]).abs().max())
+           if n_valid else 0.0,
            "bound": bound(n_bytes, n_ops)}
-    if aligner.max_intron:
+    if max_intron:
         # parent links of the intron class: target gap beyond the band
         has = pk >= 0
         par = pk.clamp(min=0).long()
         d = (t - t.gather(1, par)) - (q - q.gather(1, par))
         out["splice_links"] = int((has & (d > BANDWIDTH)).sum())
         out["links"] = int(has.sum())
-    return out, ch
+    return out
+
+
+def check_chain(dev, index, batch, preset="map-ont"):
+    """K1 against its plain version on the anchors of one read batch
+    aligned to `index` with `preset`, padded to 4096 columns (A = 4096)."""
+    import numpy as np
+
+    from nanoranger_torch.align.aligner import PanelAligner
+    from nanoranger_torch.io.encode import PAD
+    L = 4096
+    codes = np.full((batch.codes.shape[0], L), PAD, np.int8)
+    codes[:, :batch.codes.shape[1]] = batch.codes[:, :L]
+    aligner = PanelAligner(index, dev, preset=preset)
+    ch = aligner._chain(codes, batch.lengths)
+    return check_chain_rows(ch["t"], ch["q"], ch["seg"], ch["valid"],
+                            aligner.max_intron), ch
+
+
+def colinear_anchors(dev, rng, B, A, splice):
+    """(t, q, seg, valid) of B reads whose A slots all hold one colinear
+    chain of one seg: query steps of 5-30, target steps within 3 of them,
+    and with `splice` two intron-sized target jumps (1-100 kb) a read."""
+    import numpy as np
+    import torch
+    dq = rng.integers(5, 31, (B, A))
+    dt = np.maximum(dq + rng.integers(-3, 4, (B, A)), 1)
+    if splice:
+        for b in range(B):
+            dt[b, rng.choice(A, 2, replace=False)] += rng.integers(
+                1_000, 100_000, 2)
+    tt = lambda x: torch.from_numpy(
+        np.ascontiguousarray(x, dtype=np.int32)).to(dev)
+    return (tt(np.cumsum(dt, axis=1)), tt(np.cumsum(dq, axis=1)),
+            tt(np.zeros((B, A))), torch.ones((B, A), dtype=torch.bool,
+                                             device=dev))
 
 
 def synthetic_gene_reads(rng, n_reads=512, genome_len=1_000_000,
@@ -643,6 +692,7 @@ def main() -> int:
     import numpy as np
 
     from nanoranger_torch import kernels
+    from nanoranger_torch.align.aligner import MAX_INTRON
     from nanoranger_torch.align.index import PanelIndex
     from nanoranger_torch.chemistry import get as get_spec
     from nanoranger_torch.io import fastq, whitelist
@@ -692,6 +742,16 @@ def main() -> int:
         print("chip_smoke: the splice class linked no anchor across an "
               "intron on the 3-exon reads", file=sys.stderr)
         return 1
+    # K1 without data dependence: the walk's floor on reads with no valid
+    # slot, and the per-step latency on reads valid in every slot
+    dense_rng = np.random.default_rng(20261018)
+    for cls, max_intron in (("", 0), ("_splice", MAX_INTRON)):
+        z = torch.zeros((2048, 4096), dtype=torch.int32, device=dev)
+        rows.append((f"chain_all_invalid{cls}", check_chain_rows(
+            z, z, z, z.bool(), max_intron)))
+        rows.append((f"chain_dense{cls}", check_chain_rows(
+            *colinear_anchors(dev, dense_rng, 256, 4096, bool(max_intron)),
+            max_intron)))
 
     # ---- phase 2, the other modes' shapes
     v_index = PanelIndex.from_fasta(V_PANEL)

@@ -95,6 +95,10 @@ def chain_dp(t, q, seg, valid, k_span: int, max_gap: int, bandwidth: int,
         return chain_dp_plain(t, q, seg, valid, k_span, max_gap, bandwidth,
                               max_intron, splice_pen)
     B, A = t.shape
+    if k_span <= 0 or bandwidth > 10239:
+        raise ValueError("the chain kernel takes k_span > 0 and bandwidth "
+                         "<= 10239 (its log2 table), got "
+                         f"k_span={k_span}, bandwidth={bandwidth}")
     for name, x, dt in (("t", t, torch.int32), ("q", q, torch.int32),
                         ("seg", seg, torch.int32),
                         ("valid", valid, torch.bool)):

@@ -13,18 +13,18 @@ from nanoranger_tpu.align.aligner import BANDWIDTH, MAX_GAP, _chain_dp_xla
 from nanoranger_tpu.align.minimizers import K
 from nanoranger_tpu.ops.pallas_chain import chain_dp_pallas
 
-from nanoranger_torch.ops.chain import chain_dp, chain_dp_plain
+from nanoranger_torch.ops.chain import NEGF, chain_dp, chain_dp_plain
 
 torch.set_num_threads(1)
 
 
-def _synthetic_anchors(rng, B=12, A=96, n_segs=3):
+def _synthetic_anchors(rng, B=12, A=96, n_segs=3, full=False):
     t = np.zeros((B, A), np.int32)
     q = np.zeros((B, A), np.int32)
     seg = np.full((B, A), 1 << 30, np.int32)
     valid = np.zeros((B, A), bool)
     for b in range(B):
-        n = int(rng.integers(20, A))
+        n = A if full else int(rng.integers(20, A))
         sg = np.sort(rng.integers(0, n_segs, n)).astype(np.int32)
         tt = np.zeros(n, np.int64)
         for s in np.unique(sg):
@@ -37,6 +37,27 @@ def _synthetic_anchors(rng, B=12, A=96, n_segs=3):
         seg[b, :n] = sg[order]
         valid[b, :n] = True
     return t, q, seg, valid
+
+
+MASKS = ("holes", "all_invalid", "all_valid", "last_chunk")
+
+
+def mask_rows(rng, B, A, kind):
+    """(B, A) valid masks that the kernel may not assume away: holes inside
+    a valid prefix, every other row all invalid, every slot valid, or valid
+    slots only in the last 32-slot chunk."""
+    valid = np.zeros((B, A), bool)
+    for b in range(B):
+        if kind == "holes":
+            n = int(rng.integers(A // 2, A + 1))
+            valid[b, :n] = rng.random(n) < 0.7
+        elif kind == "all_invalid":
+            valid[b, :int(rng.integers(1, A + 1))] = b % 2 == 1
+        elif kind == "all_valid":
+            valid[b] = True
+        else:
+            valid[b, (A - 1) // 32 * 32:] = True
+    return valid
 
 
 def _port(t, q, seg, valid):
@@ -59,6 +80,21 @@ def test_plain_matches_xla(rng, trial):
     want = [np.asarray(x) for x in _chain_dp_xla(t, q, seg, valid,
                                                  MAX_GAP, BANDWIDTH, 0)]
     _assert_chain_equal(_port(t, q, seg, valid), want, valid)
+
+
+@pytest.mark.parametrize("kind", MASKS)
+def test_plain_matches_xla_on_masks(rng, kind):
+    """Anchors in every slot, valid or not: an invalid slot holds data that
+    would chain, and must still give NEGF, -1, -1 and be no predecessor."""
+    t, q, seg, _ = _synthetic_anchors(rng, full=True)
+    valid = mask_rows(rng, *t.shape, kind)
+    f0, p0, r0 = (np.asarray(x) for x in _chain_dp_xla(
+        t, q, seg, valid, MAX_GAP, BANDWIDTH, 0))
+    f1, p1, r1 = _port(t, q, seg, valid)
+    np.testing.assert_allclose(f1, f0, rtol=1e-5)     # every slot
+    np.testing.assert_array_equal(p1, p0)
+    np.testing.assert_array_equal(r1, r0)
+    assert (f1[~valid] == NEGF).all()
 
 
 def test_plain_matches_pallas_interpret(rng):

@@ -38,21 +38,27 @@ def _equal(got, want):
         assert torch.equal(g.cpu(), w.cpu())
 
 
-@pytest.mark.parametrize("B,A", [(37, 300), (5, 4096)])
-def test_chain_kernel(dev, B, A):
-    rng = np.random.default_rng(B * A)
+def _anchors(rng, B, A, n=None):
+    """(seg, t, q)-sorted anchors in a valid prefix of each read, of random
+    length unless `n` is given."""
     t = np.zeros((B, A), np.int32)
     q = np.zeros((B, A), np.int32)
     seg = np.full((B, A), 1 << 30, np.int32)
     valid = np.zeros((B, A), bool)
     for b in range(B):
-        n = int(rng.integers(1, A))
-        sg = np.sort(rng.integers(0, 4, n)).astype(np.int32)
-        tt = rng.integers(0, 20000, n)
-        qq = np.maximum(tt % 5000 + rng.integers(-60, 60, n), 0)
+        nb = int(rng.integers(1, A)) if n is None else n
+        sg = np.sort(rng.integers(0, 4, nb)).astype(np.int32)
+        tt = rng.integers(0, 20000, nb)
+        qq = np.maximum(tt % 5000 + rng.integers(-60, 60, nb), 0)
         order = np.lexsort((qq, tt, sg))
-        t[b, :n], q[b, :n], seg[b, :n] = tt[order], qq[order], sg[order]
-        valid[b, :n] = True
+        t[b, :nb], q[b, :nb], seg[b, :nb] = tt[order], qq[order], sg[order]
+        valid[b, :nb] = True
+    return t, q, seg, valid
+
+
+@pytest.mark.parametrize("B,A", [(37, 300), (5, 4096)])
+def test_chain_kernel(dev, B, A):
+    t, q, seg, valid = _anchors(np.random.default_rng(B * A), B, A)
     args = [torch.from_numpy(a).to(dev) for a in (t, q, seg, valid)]
     before = kernels.launches["chain"]
     f, p, r = chain_dp(*args, 15, 5000, 500)
@@ -63,26 +69,27 @@ def test_chain_kernel(dev, B, A):
     torch.testing.assert_close(f[v], fp[v], rtol=1e-5, atol=0)
 
 
-def _intron_anchors(rng, B, A, n_segs=4):
-    """(seg, t, q)-sorted anchors; within each seg the later anchors jump by
+def _intron_anchors(rng, B, A, n_segs=4, n=None):
+    """(seg, t, q)-sorted anchors in a valid prefix of each read, of random
+    length unless `n` is given; within each seg the later anchors jump by
     an intron-sized target gap, so the splice class links across it."""
     t = np.zeros((B, A), np.int32)
     q = np.zeros((B, A), np.int32)
     seg = np.full((B, A), 1 << 30, np.int32)
     valid = np.zeros((B, A), bool)
     for b in range(B):
-        n = int(rng.integers(1, A))
-        sg = np.sort(rng.integers(0, n_segs, n)).astype(np.int32)
-        qq = rng.integers(0, 3000, n)
-        tt = qq + rng.integers(-30, 30, n)
+        nb = int(rng.integers(1, A)) if n is None else n
+        sg = np.sort(rng.integers(0, n_segs, nb)).astype(np.int32)
+        qq = rng.integers(0, 3000, nb)
+        tt = qq + rng.integers(-30, 30, nb)
         for s in np.unique(sg):
             m = np.flatnonzero(sg == s)
             for cut in np.sort(rng.choice(3000, 2, replace=False)):
                 tt[m[qq[m] > cut]] += int(rng.integers(600, 150_000))
         tt = np.maximum(tt, 0)
         order = np.lexsort((qq, tt, sg))
-        t[b, :n], q[b, :n], seg[b, :n] = tt[order], qq[order], sg[order]
-        valid[b, :n] = True
+        t[b, :nb], q[b, :nb], seg[b, :nb] = tt[order], qq[order], sg[order]
+        valid[b, :nb] = True
     return t, q, seg, valid
 
 
@@ -117,6 +124,58 @@ def test_chain_kernel_takes_a_float_splice_pen(dev):
     v = args[3]
     torch.testing.assert_close(f65[v], fp65[v], rtol=1e-5, atol=0)
     assert bool((f65[v] < f6[v]).any())
+
+
+def _masked_rows(rng, B, A, splice, kind):
+    """Anchors in every slot of B reads, under a valid mask the kernel may
+    not assume away: holes inside a valid prefix, every other row all
+    invalid, every slot valid, valid slots only in the last 32-slot chunk,
+    or ("ties") every slot valid on a diagonal whose points repeat three
+    times, so equal scores meet in each window and the LAST argmax must
+    win; the diagonal jumps by an intron halfway, which only the splice
+    class links across."""
+    if kind == "ties":
+        pts = np.cumsum(rng.integers(20, 200, (B, A // 3 + 1)), axis=1)
+        q = np.repeat(pts, 3, axis=1)[:, :A]
+        t = q + np.where(np.arange(A) >= A // 2, 50_000, 0)
+        return (t.astype(np.int32), q.astype(np.int32),
+                np.zeros((B, A), np.int32), np.ones((B, A), bool))
+    t, q, seg, _ = _intron_anchors(rng, B, A, n=A) if splice else \
+        _anchors(rng, B, A, n=A)
+    valid = np.zeros((B, A), bool)
+    for b in range(B):
+        if kind == "holes":
+            n = int(rng.integers(A // 2, A + 1))
+            valid[b, :n] = rng.random(n) < 0.7
+        elif kind == "all_invalid":
+            valid[b, :int(rng.integers(1, A + 1))] = b % 2 == 1
+        elif kind == "all_valid":
+            valid[b] = True
+        else:
+            valid[b, (A - 1) // 32 * 32:] = True
+    return t, q, seg, valid
+
+
+@pytest.mark.parametrize("splice", [False, True])
+@pytest.mark.parametrize("kind,A", [
+    ("holes", 33), ("holes", 300), ("holes", 4096), ("all_invalid", 300),
+    ("all_invalid", 4096), ("all_valid", 33), ("all_valid", 4096),
+    ("last_chunk", 33), ("last_chunk", 300), ("last_chunk", 4096),
+    ("ties", 300), ("ties", 4096)])
+def test_chain_kernel_masks(dev, splice, kind, A):
+    """f at every slot (NEGF included), parents and roots equal to the
+    plain version's, bit for bit, in both gap classes."""
+    rng = np.random.default_rng(A + 7 * splice + len(kind))
+    t, q, seg, valid = _masked_rows(rng, 19, A, splice, kind)
+    args = [torch.from_numpy(a).to(dev) for a in (t, q, seg, valid)]
+    cls = (200_000, 6.0) if splice else (0,)
+    got = chain_dp(*args, 15, 5000, 500, *cls)
+    want = chain_dp_plain(*args, 15, 5000, 500, *cls)
+    _equal(got, want)
+    if kind == "ties":
+        p = got[1].cpu().numpy()
+        assert (p[:, 3:A // 2] % 3 == 2).all()    # the last copy of a point
+        assert (p[:, A // 2] >= 0).all() == splice   # across the intron
 
 
 @pytest.mark.parametrize("W,m", [(100, 51), (37, 14), (128, 64), (129, 30),
@@ -358,3 +417,5 @@ def test_wrappers_refuse_bad_tensors(dev):
         chain_dp(t.t().contiguous().t(), t, t, valid, 15, 5000, 500)
     with pytest.raises(ValueError, match="CUDA"):
         chain_dp(t, t.cpu(), t, valid, 15, 5000, 500)
+    with pytest.raises(ValueError, match="bandwidth"):
+        chain_dp(t, t, t, valid, 15, 5000, 10240)

@@ -30,8 +30,9 @@ from nanoranger_torch.align.index import PanelIndex
 from nanoranger_torch.align.minimizers import K
 from nanoranger_torch.io import bam, fastq
 from nanoranger_torch.io.encode import PAD, decode, revcomp
-from nanoranger_torch.ops.chain import chain_dp, chain_dp_plain
+from nanoranger_torch.ops.chain import NEGF, chain_dp, chain_dp_plain
 from nanoranger_torch.pipeline import genome_stage
+from test_torch_chain import MASKS, mask_rows
 
 torch.set_num_threads(1)
 
@@ -41,15 +42,16 @@ GENE_START = 120_000
 GENOME_LEN = 300_000        # above the index's chunked-sketch limit
 
 
-def _intron_anchors(rng, B=12, A=96, n_segs=3):
+def _intron_anchors(rng, B=12, A=96, n_segs=3, full=False):
     """(seg, t, q)-sorted anchors whose second half of each seg jumps by an
-    intron-sized target gap (tests/test_pallas_chain.py builds the same)."""
+    intron-sized target gap (tests/test_pallas_chain.py builds the same);
+    with `full` in every slot."""
     t = np.zeros((B, A), np.int32)
     q = np.zeros((B, A), np.int32)
     seg = np.full((B, A), 1 << 30, np.int32)
     valid = np.zeros((B, A), bool)
     for b in range(B):
-        n = int(rng.integers(20, A))
+        n = A if full else int(rng.integers(20, A))
         sg = np.sort(rng.integers(0, n_segs, n)).astype(np.int32)
         tt = np.zeros(n, np.int64)
         for s in np.unique(sg):
@@ -90,6 +92,21 @@ def test_splice_plain_matches_xla(rng, trial):
     np.testing.assert_array_equal(p1, p0)
     np.testing.assert_array_equal(r1, r0)
     assert _n_splice_links(t, q, p1) > 0      # the intron arm was taken
+
+
+@pytest.mark.parametrize("kind", MASKS)
+def test_splice_plain_matches_xla_on_masks(rng, kind):
+    """The splice class on anchors in every slot under masks with holes,
+    all-invalid rows, all-valid rows and only a last chunk valid."""
+    t, q, seg, _ = _intron_anchors(rng, full=True)
+    valid = mask_rows(rng, *t.shape, kind)
+    f0, p0, r0 = (np.asarray(x) for x in _chain_dp_xla(
+        t, q, seg, valid, MAX_GAP, BANDWIDTH, MAX_INTRON))
+    f1, p1, r1 = _port_splice(t, q, seg, valid)
+    np.testing.assert_allclose(f1, f0, rtol=1e-5)     # every slot
+    np.testing.assert_array_equal(p1, p0)
+    np.testing.assert_array_equal(r1, r0)
+    assert (f1[~valid] == NEGF).all()
 
 
 def test_splice_plain_matches_pallas_interpret(rng):
