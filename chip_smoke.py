@@ -50,7 +50,16 @@ without the package beside it, it exits non-zero and prints no result.
 
 runs phases 1 and 2 only and prints the card line: the quick check of the
 kernels, and the way to time two trees in turns (copy this script into a
-checkout of each and run them old, new, new, old in one call).
+checkout of each and run them old, new, new, old in one call). Phase 2
+first times an empty launch (a one-element fill_) in the same timer: the
+floor under any one launch, which no bound counts.
+
+    python3 chip_smoke.py --ptxas DIR
+
+only builds every kernel library into DIR with -Xptxas -v and prints one
+line per kernel: registers, spills, SASS instructions and the SASS loops
+(first address and instructions of each backward branch), keeping the
+SASS in DIR.
 """
 
 from __future__ import annotations
@@ -320,6 +329,26 @@ def flank_windows(dev, spec, index, batch, ch=None):
         0 if f.anchor == "qstart" else 1, f.lo, f.hi)[:2]
 
 
+# instructions of one column step of csrc/ed.cu's walks, (forward,
+# reverse) by pattern words (one 32-bit word for m <= 32, two for m <= 64):
+# each walk loop holds 4 steps, and its SASS (`chip_smoke.py --ptxas`
+# lists each loop's instructions) has 108-109 / 97 instructions with one
+# word and 149-152 / 143-145 with two, rounded down a step (CUDA 12.8)
+ED_STEP_INSTR = {1: (27, 24), 2: (37, 35)}
+
+
+def ed_columns(lengths, ref, m):
+    """(forward, reverse) column steps the scan needs on these inputs:
+    every column of each row, and for each hit the columns x = 0..min(e,
+    m + dist - 1) of the reverse walk from its end e."""
+    import torch
+    fwd = int(lengths.clamp(min=0).sum())
+    dist, _, end = ref
+    hit = dist >= 0
+    rev = int(torch.minimum(end[hit] + 1, m + dist[hit]).sum())
+    return fwd, rev
+
+
 def check_ed_setting(dev, pattern, texts, lengths, k, wildcard, pick_last):
     """K2+K3 against the plain scan on one set of window rows."""
     import numpy as np
@@ -334,13 +363,22 @@ def check_ed_setting(dev, pattern, texts, lengths, k, wildcard, pick_last):
     ms = cuda_ms(lambda: hw_locate(*args), 20)
     mism, err = compare(got, ref)
     R, W = texts.shape
+    m = len(pattern)
     n_hit = int((ref[0] >= 0).sum())
-    cells = (R + n_hit) * len(pattern) * (W + 1)
-    return {"shape": [R, W], "m": len(pattern), "k": k,
+    fwd, rev = ed_columns(lengths.clamp(max=W), ref, m)
+    words = (m + 31) // 32
+    return {"shape": [R, W], "m": m, "k": k,
             "wildcard": wildcard, "pick_last": pick_last, "hits": n_hit,
             "ms": ms, "plain_ms": plain_ms, "mismatches": mism,
-            "max_abs_err": err,
-            "bound": bound(R * W + 16 * R + len(pattern), cells * 6)}
+            "max_abs_err": err, "fwd_columns": fwd, "rev_columns": rev,
+            "words": words,
+            # the count of the parent's cell kernel: 6 ops a DP cell of
+            # both passes over the whole window
+            "cell_bound_ms": (R + n_hit) * m * (W + 1) * 6
+            / SCALAR_OPS_PER_S * 1e3,
+            "bound": bound(R * W + 16 * R + m,
+                           fwd * ED_STEP_INSTR[words][0]
+                           + rev * ED_STEP_INSTR[words][1])}
 
 
 def check_ed_mode(dev, spec, window, wlen):
@@ -466,8 +504,9 @@ def check_verify_sw(dev, barcodes, spec, seqs, launch_rows):
     nb = band.shape[1]
     sw = {"shape": [int(qf.shape[0]), int(qf.shape[1]), nb], "ms": sms,
           "plain_ms": plain_ms, "mismatches": mism, "max_abs_err": err,
+          # one pass over the band: ~6 scalar ops a cell
           "bound": bound(qf.numel() + band.numel() + 16 * qf.shape[0],
-                         int(qlf.sum()) * nb * 2 * 6)}
+                         int(qlf.sum()) * nb * 6)}
     return verify, at_launch, sw
 
 
@@ -505,6 +544,86 @@ def check_sw_full(dev, barcodes, spec, rng):
             "max_abs_err": err,
             "bound": bound(q.numel() + refs.numel() + 8 * P + 12 * P,
                            cells * 8)}
+
+
+# --------------------------------------------------------------------------
+# --ptxas: what ptxas made of each kernel
+
+def sass_loops(sass: str) -> dict:
+    """{function: [[first address, instructions], ...]} of every backward
+    branch in cuobjdump's SASS: the loops, each from its branch target to
+    the branch."""
+    import re
+    loops, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            loops[fn] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if not (m and fn):
+            continue
+        at = int(m.group(1), 16)
+        b = re.search(r"\bBRA\s+(?:`\(\.L_x_\d+\)\s*)?0x([0-9a-f]+)",
+                      m.group(2))
+        if b and int(b.group(1), 16) <= at:
+            start = int(b.group(1), 16)
+            loops[fn].append([hex(start), (at - start) // 16 + 1])
+    return loops
+
+
+def ptxas_report(out_dir: str) -> int:
+    """Build every library with -Xptxas -v into out_dir, emit one line per
+    kernel with its registers, spills and SASS loops, and keep the SASS
+    beside the libraries."""
+    import re
+
+    from nanoranger_torch import kernels
+    os.makedirs(out_dir, exist_ok=True)
+    procs = []
+    for name, (src, extra) in kernels.SOURCES.items():
+        so = os.path.join(out_dir, f"lib{name}.so")
+        cmd = [kernels.nvcc_path(), *kernels.ARCH_FLAGS,
+               *kernels.COMMON_FLAGS, *extra, "-Xptxas", "-v", "-o", so,
+               os.path.join(kernels.CSRC, src)]
+        procs.append((name, so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    cuobjdump = os.path.join(os.path.dirname(kernels.nvcc_path()),
+                             "cuobjdump")
+    for name, so, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            print(log, file=sys.stderr)
+            return 1
+        sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+        with open(os.path.join(out_dir, f"lib{name}.sass"), "w") as f:
+            f.write(sass)
+        loops = sass_loops(sass)
+        info, fn = {}, None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+                info[fn] = {}
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and fn:
+                info[fn]["spill_stores"] = int(m.group(1))
+                info[fn]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                info[fn]["registers"] = int(m.group(1))
+        for fn, d in info.items():
+            emit({"phase": "ptxas", "library": name, "function": fn, **d,
+                  "sass_instructions": sum(
+                      1 for line in sass.split(f"Function : {fn}")[-1]
+                      .split("Function : ")[0].splitlines()
+                      if re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line)),
+                  "loops": loops.get(fn, [])})
+    return 0
 
 
 # --------------------------------------------------------------------------
@@ -673,6 +792,10 @@ def main() -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="phases 1 and 2 only: build the kernels and hold "
                     "each against its plain version")
+    ap.add_argument("--ptxas", metavar="DIR",
+                    help="only build every kernel library into DIR with "
+                    "-Xptxas -v and print each kernel's registers, spills "
+                    "and SASS loops (the SASS is kept in DIR)")
     opts = ap.parse_args()
     try:
         import torch
@@ -689,6 +812,8 @@ def main() -> int:
               "(nanoranger_torch/ and data/ beside it)", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if opts.ptxas:
+        return ptxas_report(opts.ptxas)
     import numpy as np
 
     from nanoranger_torch import kernels
@@ -707,6 +832,11 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(time.time() - t0, 2),
           "libraries": sorted(kernels.SOURCES),
           "dir": os.path.relpath(kernels.build_dir(), HERE)})
+
+    # the launch floor: one launch that does nothing, in the same timer
+    one = torch.zeros(1, device=dev)
+    emit({"phase": "launch_floor", "card": card, "what": "one-element fill_",
+          "ms": cuda_ms(lambda: one.fill_(0), 200)})
 
     # ---- phase 2, the 5p10XGEX shapes of the K562 run
     index = PanelIndex.from_fasta(PANEL)

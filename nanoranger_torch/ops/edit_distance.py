@@ -29,7 +29,7 @@ from ..io.encode import N as N_CODE
 from ..io.encode import PAD as PAD_CODE
 
 BIG = 1 << 20
-MAX_KERNEL_WIDTH = 512     # csrc/ed.cu: up to 16 columns per lane of one warp
+MAX_KERNEL_WIDTH = 512     # csrc/ed.cu: 64 rows of W bytes staged a block
 
 
 def _match_mask(p_char: int, t_chars, wildcard: bool):

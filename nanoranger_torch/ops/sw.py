@@ -34,7 +34,9 @@ from ..io.encode import N as N_CODE
 from ..io.encode import PAD as PAD_CODE
 
 NEG = -(1 << 20)
-MAX_FULL_LQ = 127          # csrc/sw_full.cu: Lq + 1 DP rows, 4 to a lane
+MAX_FULL_LQ = 127          # csrc/sw_full.cu, sw_banded.cu: Lq + 1 DP rows,
+                           # 4 to a lane of one warp
+MAX_BANDED_NB = 64         # csrc/sw_banded.cu: band held in two registers
 MAX_FULL_LR = 128          # csrc/sw_full.cu: reference row staged per warp
 
 
@@ -98,20 +100,21 @@ def sw_end2end_banded(query, qlen, band, Lr: int, c_lo: int, c: int):
         return sw_banded_plain(query, qlen, band, Lr, c_lo, c)
     P, Lq = query.shape
     nb = c - c_lo + 1
-    if nb not in (17, 33):
-        raise ValueError(f"sw_banded kernel takes 17 or 33 band columns, "
-                         f"got {nb}")
+    if not (1 <= nb <= MAX_BANDED_NB and 1 <= Lq <= MAX_FULL_LQ):
+        raise ValueError(f"sw_banded kernel takes 1 <= band columns <= "
+                         f"{MAX_BANDED_NB} and 1 <= Lq <= {MAX_FULL_LQ}, got "
+                         f"{nb} and Lq={Lq}")
     kernels.check(query, "query", torch.int8, (P, Lq))
     kernels.check(qlen, "qlen", torch.int32, (P,))
     kernels.check(band, "band", torch.int8, (P, nb))
     score = torch.empty(P, dtype=torch.int32, device=query.device)
     qpos = torch.empty_like(score)
-    valid = torch.empty_like(score)
+    valid = torch.empty(P, dtype=torch.bool, device=query.device)
     fn = kernels.entry("sw", "sw_banded", 6, 6)
     kernels.launch("sw", fn, query.data_ptr(), qlen.data_ptr(),
                    band.data_ptr(), score.data_ptr(), qpos.data_ptr(),
                    valid.data_ptr(), P, Lq, nb, int(Lr), int(c_lo), int(c))
-    return score, qpos, valid.bool()
+    return score, qpos, valid
 
 
 def sw_end2end_plain(query, qlen, refs, rlen, umi_ref_offset: int):

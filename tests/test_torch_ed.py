@@ -175,3 +175,69 @@ def test_scan_flanks_equals_jax(rng, mode):
     if sc.window_size is not None:
         # hits beyond the first sub-window: the offset was added
         assert (got[4].numpy() >= sc.window_stride).any()
+
+
+def _edge_case(rng, m, W=80, B=24):
+    """B rows of W against a pattern of m with N in both: lengths 0, 1,
+    m - 1 and W first, then random; every other row from row 4 on holds
+    the pattern (every second one of them with one substitution), row 4 at
+    the start of its text."""
+    p = [0.22, 0.22, 0.22, 0.22, 0.12]
+    pattern = rng.choice(5, size=m, p=p).astype(np.int8)
+    texts = rng.choice(5, size=(B, W), p=p).astype(np.int8)
+    lengths = rng.integers(0, W + 1, size=B).astype(np.int32)
+    lengths[:4] = (0, 1, min(max(m - 1, 0), W), W)
+    for b in range(4, B, 2):
+        lengths[b] = rng.integers(m, W + 1)
+        p0 = 0 if b == 4 else int(rng.integers(0, lengths[b] - m + 1))
+        texts[b, p0:p0 + m] = pattern
+        if b % 4 == 2 and m > 1:
+            texts[b, p0 + int(rng.integers(0, m))] = int(rng.integers(0, 4))
+    for b in range(B):
+        texts[b, lengths[b]:] = PAD
+    return pattern, texts, lengths
+
+
+# m at the word boundaries of csrc/ed.cu's bit vectors (one 32-bit word up
+# to 32, two up to 64); pick_last flips with the word count, so each
+# (wildcard, pick_last) pair meets one and two words
+@pytest.mark.parametrize("m", [1, 31, 32, 33, 63, 64])
+@pytest.mark.parametrize("wildcard", [False, True])
+def test_plain_matches_xla_and_oracle_at_word_edges(rng, m, wildcard):
+    pick_last = wildcard != (m > 32)
+    pattern, texts, lengths = _edge_case(rng, m)
+    for k in (0, 3):
+        d0, s0, e0 = map(np.asarray, hw_locate_xla(
+            pattern, texts, lengths, k, wildcard=wildcard,
+            pick_last=pick_last))
+        d1, s1, e1 = _port(pattern, texts, lengths, k, wildcard, pick_last)
+        np.testing.assert_array_equal(d1, d0)
+        hit = d0 >= 0
+        assert hit.sum() >= 3
+        np.testing.assert_array_equal(s1[hit], s0[hit])
+        np.testing.assert_array_equal(e1[hit], e0[hit])
+        assert (s1[~hit] == -1).all() and (e1[~hit] == -1).all()
+    # the oracle gives an empty text distance m and no location where
+    # m <= k; the XLA version, whose semantics the port keeps, no hit
+    for b in np.flatnonzero(lengths > 0):
+        ref = edlib_hw_reference(pattern, texts[b, :lengths[b]], 3,
+                                 wildcard=wildcard)
+        assert d1[b] == ref["editDistance"]
+        if ref["editDistance"] >= 0:
+            loc = ref["locations"][-1 if pick_last else 0]
+            assert (s1[b], e1[b]) == loc
+
+
+@pytest.mark.parametrize("m", [1, 31, 32, 33, 63, 64])
+def test_hit_spans_at_most_m_plus_dist(rng, m):
+    """Every hit has end - start + 1 <= m + dist (an alignment of m bases
+    to a longer text costs at least the difference): the kernel's reverse
+    walk stops at m + dist columns from the end on this."""
+    pattern, texts, lengths = _edge_case(rng, m)
+    for wildcard in (False, True):
+        for pick_last in (False, True):
+            d, s, e = _port(pattern, texts, lengths, m, wildcard, pick_last)
+            hit = d >= 0
+            assert (hit == (lengths > 0)).all()
+            assert (e[hit] - s[hit] + 1 <= m + d[hit]).all()
+            assert (s[hit] >= 0).all() and (e[hit] < lengths[hit]).all()

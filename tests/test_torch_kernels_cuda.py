@@ -1,7 +1,8 @@
 """The port's five Hopper kernel libraries against their plain PyTorch
-versions on the card, at ragged shapes the main paths do not exercise
-(chip_smoke.py holds them at the main-path shapes); the chain DP in both of
-its gap classes. Every test is marked `cuda` and skips
+versions on the card, at ragged shapes and edges the main paths do not
+exercise (chip_smoke.py holds them at the main-path shapes); the chain DP
+in both of its gap classes, the adapter scan at the word boundaries of its
+bit vectors, the banded rescore at the pipeline's pair counts. Every test is marked `cuda` and skips
 without a card. The file imports neither JAX nor the JAX package, so on a
 machine with a card and no JAX it runs as
 
@@ -230,6 +231,113 @@ def test_ed_wrapper_states_its_limit(dev):
         hw_locate(torch.zeros(20, dtype=torch.int8, device=dev), z, n, 2)
 
 
+def _ed_edges(rng, R, W, m, k, hits="some"):
+    """R rows of W against a pattern of m with N in both: lengths 0, 1,
+    m - 1 and W first, then random; with hits="some" every third row holds
+    the pattern, with "all" every row (a length of at least m), with "none"
+    no row can reach k (texts of one base, a pattern without it). Odd
+    planted rows carry one substitution; row 4 ends its planted hit before
+    column m + k."""
+    if hits == "none":
+        pattern = rng.integers(1, 4, size=m).astype(np.int8)
+        texts = np.zeros((R, W), np.int8)
+    else:
+        p = [0.23, 0.23, 0.23, 0.23, 0.08]
+        pattern = rng.choice(5, size=m, p=p).astype(np.int8)
+        texts = rng.choice(5, size=(R, W), p=p).astype(np.int8)
+    lo = m if hits == "all" else 0
+    lengths = rng.integers(min(lo, W), W + 1, size=R).astype(np.int32)
+    if hits != "all":
+        lengths[:4] = (0, 1, min(max(m - 1, 0), W), W)
+    for b in range(R):
+        plant = hits == "all" or (hits == "some" and b % 3 == 0)
+        if plant and lengths[b] >= m:
+            p0 = 0 if b == 4 else int(rng.integers(0, lengths[b] - m + 1))
+            texts[b, p0:p0 + m] = pattern
+            if m > 1 and b % 2:
+                texts[b, p0 + int(rng.integers(0, m))] = int(
+                    rng.integers(0, 4))
+        texts[b, lengths[b]:] = PAD
+    return pattern, texts, lengths
+
+
+@pytest.mark.parametrize("m", [1, 31, 32, 33, 63, 64])
+@pytest.mark.parametrize("k,wildcard,pick_last", [
+    (0, False, False), (0, True, True), (3, True, False), (3, False, True)])
+def test_ed_kernel_word_edges(dev, m, k, wildcard, pick_last):
+    """K2+K3 at the word boundaries of its bit vectors, k = 0, lengths 0,
+    1, below m and W, N in pattern and text, R not a multiple of 32."""
+    rng = np.random.default_rng(m * 8 + k * 2 + wildcard)
+    pattern, texts, lengths = _ed_edges(rng, 333, 150, m, k)
+    args = [torch.from_numpy(a).to(dev) for a in (pattern, texts, lengths)]
+    before = kernels.launches["ed"]
+    got = hw_locate(*args, k, wildcard, pick_last)
+    assert kernels.launches["ed"] == before + 1
+    want = hw_locate_plain(*args, k, wildcard, pick_last)
+    _equal(got, want)
+    assert int((want[0] >= 0).sum()) > 20
+
+
+@pytest.mark.parametrize("hits", ["all", "none"])
+@pytest.mark.parametrize("W,m,k", [(40, 18, 2), (270, 20, 3), (220, 53, 6),
+                                   (100, 32, 2), (100, 33, 2)])
+def test_ed_kernel_all_or_no_rows_hit(dev, hits, W, m, k):
+    rng = np.random.default_rng(W + m + len(hits))
+    pattern, texts, lengths = _ed_edges(rng, 1000, W, m, k, hits)
+    args = [torch.from_numpy(a).to(dev) for a in (pattern, texts, lengths)]
+    got = hw_locate(*args, k, True, hits == "all")
+    want = hw_locate_plain(*args, k, True, hits == "all")
+    _equal(got, want)
+    n_hit = int((want[0] >= 0).sum())
+    assert n_hit == (1000 if hits == "all" else 0)
+
+
+@pytest.mark.parametrize("R,empty", [(100, 0.0), (3000, 0.75),
+                                     (20000, 0.9), (20000, 0.0)])
+@pytest.mark.parametrize("W,m,k", [(270, 20, 2), (220, 53, 6), (40, 18, 0)])
+def test_ed_kernel_hits_across_chunks(dev, R, empty, W, m, k):
+    """A block cuts its non-empty rows into chunks of C columns, C from a
+    few columns (few rows a block) to W (every row non-empty); row b holds
+    the pattern at offset b mod (W - m + 1), so every chunk boundary lies
+    inside some row's hit, and the empty rows change C."""
+    rng = np.random.default_rng(R + W + m)
+    pattern = rng.integers(0, 4, size=m).astype(np.int8)
+    texts = rng.integers(0, 4, size=(R, W)).astype(np.int8)
+    lengths = np.full(R, W, np.int32)
+    lengths[rng.random(R) < empty] = 0
+    for b in range(R):
+        p0 = b % (W - m + 1)
+        texts[b, p0:p0 + m] = pattern
+        if k and b % 2:
+            texts[b, p0 + int(rng.integers(0, m))] ^= 1
+    texts[np.arange(W)[None] >= lengths[:, None]] = PAD
+    args = [torch.from_numpy(a).to(dev) for a in (pattern, texts, lengths)]
+    for wildcard, pick_last in ((False, False), (True, True)):
+        got = hw_locate(*args, k, wildcard, pick_last)
+        want = hw_locate_plain(*args, k, wildcard, pick_last)
+        _equal(got, want)
+        assert int((want[0] >= 0).sum()) >= int((lengths > 0).sum()) // 2
+
+
+def test_ed_kernel_any_text_code_and_odd_base_address(dev):
+    """Text codes outside 0..5 score as the plain version scores them, and
+    texts at an odd address (a view) stage byte by byte."""
+    rng = np.random.default_rng(5)
+    pattern, texts, lengths = _ed_edges(rng, 301, 129, 30, 4)
+    odd = rng.random(texts.shape) < 0.05
+    texts[odd] = rng.choice(np.array([6, 7, 127, -1, -128], np.int8),
+                            int(odd.sum()))
+    flat = torch.zeros(texts.size + 1, dtype=torch.int8, device=dev)
+    flat[1:] = torch.from_numpy(texts.ravel()).to(dev)
+    view = flat[1:].view(texts.shape)
+    assert view.data_ptr() % 16 != 0
+    p, n = (torch.from_numpy(a).to(dev) for a in (pattern, lengths))
+    for wildcard in (False, True):
+        want = hw_locate_plain(p, view, n, 4, wildcard, False)
+        _equal(hw_locate(p, view, n, 4, wildcard, False), want)
+        _equal(hw_locate(p, view.contiguous(), n, 4, wildcard, False), want)
+
+
 def _verify_inputs(rng, m, Lq, R, C, edges):
     """Candidates against R random cores of m. Rows 5, 261, 517 and 777
     share a core (ties across row blocks of 256), every fourth candidate
@@ -339,6 +447,72 @@ def test_sw_banded_kernel(dev, pad_left, core, pad_right):
     got = sw_end2end_banded(*args)
     want = sw_banded_plain(*args)
     _equal(got, want)
+
+
+def _sw_edges(rng, P, Lq, nb):
+    """P candidates against bands of nb columns, edges first: qlen 0, 1
+    and Lq, an all-N band, an all-PAD band, an all-N query, and a
+    homopolymer query against a homopolymer band (many query positions tie
+    on the UMI column); the rest hold the band's core with noise."""
+    q = np.full((P, Lq), PAD, np.int8)
+    qlen = rng.integers(0, Lq + 1, size=P).astype(np.int32)
+    band = rng.integers(0, 4, size=(P, nb)).astype(np.int8)
+    band[:, -1] = N                              # the first right-pad N
+    qlen[:7] = (0, 1, Lq, 60, 60, 60, 70)[:min(P, 7)]
+    for i in range(P):
+        q[i, :qlen[i]] = rng.integers(0, 5, qlen[i])
+        at = int(rng.integers(0, 20))
+        n = max(0, min(nb - 1, int(qlen[i]) - at))
+        q[i, at:at + n] = band[i, :n]
+    edges = [(3, N, None), (4, PAD, None), (5, None, N), (6, 0, 0)]
+    for i, b, c in edges[:max(0, P - 3)]:
+        if b is not None:
+            band[i, :nb - 1 if b == 0 else nb] = b
+        if c is not None:
+            q[i, :qlen[i]] = c
+    return q, qlen, band
+
+
+@pytest.mark.parametrize("P", [1, 59, 256, 1000])
+@pytest.mark.parametrize("pad_left,nb", [(30, 17), (15, 33), (4, 5),
+                                         (2, 64)])
+def test_sw_banded_kernel_edges(dev, P, pad_left, nb):
+    """K5 equals its plain version at the pipeline's pair counts and the
+    edges, at both chemistry bands and two run-time widths."""
+    rng = np.random.default_rng(P + nb)
+    Lq = 96
+    q, qlen, band = _sw_edges(rng, P, Lq, nb)
+    c = pad_left + nb - 1
+    args = (torch.from_numpy(q).to(dev), torch.from_numpy(qlen).to(dev),
+            torch.from_numpy(band).to(dev), c + 40, pad_left, c)
+    before = kernels.launches["sw"]
+    got = sw_end2end_banded(*args)
+    assert kernels.launches["sw"] == before + 1
+    want = sw_banded_plain(*args)
+    _equal(got, want)
+    if P >= 59 and nb in (17, 33):
+        assert int(want[2].sum()) > P // 3
+
+
+def test_sw_banded_kernel_longest_query(dev):
+    """Lq = 127, the most rows the warp holds (128 with row 0)."""
+    rng = np.random.default_rng(127)
+    q, qlen, band = _sw_edges(rng, 300, 127, 17)
+    args = (torch.from_numpy(q).to(dev), torch.from_numpy(qlen).to(dev),
+            torch.from_numpy(band).to(dev), 86, 30, 46)
+    _equal(sw_end2end_banded(*args), sw_banded_plain(*args))
+
+
+def test_sw_banded_wrapper_states_its_limit(dev):
+    q = torch.zeros((2, 128), dtype=torch.int8, device=dev)
+    n = torch.zeros(2, dtype=torch.int32, device=dev)
+    b = torch.zeros((2, 17), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="Lq <= 127"):
+        sw_end2end_banded(q, n, b, 86, 30, 46)
+    with pytest.raises(ValueError, match="band columns <= 64"):
+        sw_end2end_banded(q[:, :96].contiguous(), n,
+                          torch.zeros((2, 65), dtype=torch.int8, device=dev),
+                          200, 30, 94)
 
 
 def _full_rows(rng, pad_left, core, pad_right, P, Lq):
