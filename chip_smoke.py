@@ -21,8 +21,12 @@ Phases, each of which must pass or the script exits non-zero:
                the banded rescore at band 33, the full-row rescore at the
                four pad geometries), and the one-vs-all DP at the candidate
                rows of the K562 run's launch (118) and of the slideseq
-               run's last (336); one JSON line per kernel and shape with its
-               time, the plain version's time and the mismatches
+               run's last (336), and on one whitelist shard at its r_valid
+               as phase 5 launches it (74 rows against the last of 4 shards
+               of the 737K list; the slideseq candidates against the second
+               of 2 slideseq shards, one padding row past r_valid); one
+               JSON line per kernel and shape with its time, the plain
+               version's time and the mismatches
   3. main    — run nanoranger_torch.pipeline.run_pipeline("5p10XGEX") on
                the K562 sample against the full 737,280-row whitelist,
                genome stage included, hold the artifacts to the K562 golden
@@ -36,7 +40,19 @@ Phases, each of which must pass or the script exits non-zero:
                tables included), 3pXCR_slideseq on slideseq_XCR (full
                17,753-row list) and RTX on TCR3 (subreads and clonotypes,
                no barcodes), launch counts reset before each run
-  5. rescan  — the full-row rescorer on the real pairs of the two barcoded
+  5. sharded — K562 again with wl_shards=4, data_shards=2 (a 2x4 mesh of
+               cells laid on the card) and slideseq_XCR with wl_shards=2:
+               every artifact byte-identical to the unsharded run's (after
+               gunzip, the BAM after BGZF), the golden met, the one-vs-all
+               DP launched once per shard and chunk (k562: >= 4, slideseq:
+               >= 2 x its unsharded launches) and the UMI rescore (k562);
+               the sharded match timed step by step (parallel/sharded.py
+               step_s: each step's host time and its wait on the card),
+               and k562 once more with the tier pass over each data block
+               whole (one chunk where the default takes 6), held the same;
+               the aten calls one call of each tier function dispatches,
+               at a chunk's rows and at a data block's
+  6. rescan  — the full-row rescorer on the real pairs of the two barcoded
                runs of phase 4: every accepted candidate against the full
                padded row of its barcode must give the banded rescorer's
                score, validity and position, and the UMI of the table
@@ -426,10 +442,11 @@ def structured_candidates(rng, barcodes, n, spec, edits=(0, 4)):
     return seqs, truth
 
 
-def verify_args(dev, coreT, spec, seqs):
+def verify_args(dev, coreT, spec, seqs, r_valid=None):
     """The one-vs-all DP's arguments as the staged match builds them: the
     candidates and their reverse complements (2 x len(seqs) rows of 96)
-    against every row of coreT."""
+    against every row of coreT, the first r_valid of them live (all by
+    default)."""
     import torch
 
     from nanoranger_torch.io.encode import encode_batch
@@ -438,7 +455,8 @@ def verify_args(dev, coreT, spec, seqs):
     qf = torch.from_numpy(q_np).to(dev)
     qlf = torch.from_numpy(ql_np).to(dev)
     qq = torch.cat([qf, revcomp_rows(qf, qlf)]).contiguous()   # (2n, 96)
-    return (qq, torch.cat([qlf, qlf]), coreT, coreT.shape[1], spec.pad_left,
+    return (qq, torch.cat([qlf, qlf]), coreT,
+            coreT.shape[1] if r_valid is None else r_valid, spec.pad_left,
             spec.pad_right)
 
 
@@ -680,12 +698,15 @@ def collect(outdir, s, mode):
 
 
 def run_mode(name, mode, infile, panel, genome, wl, out, card, golden,
-             expect):
+             expect, shards=None):
     """One run of run_pipeline on the card with the launch counts set to 0
-    just before and read just after. Returns (launches, failure or None)."""
+    just before and read just after; `shards` is (wl_shards, data_shards),
+    and a sharded run times the steps of its match (which synchronises the
+    card at each step's end). Returns (launches, failure or None)."""
     import torch
 
     from nanoranger_torch import kernels
+    from nanoranger_torch.parallel import sharded
     from nanoranger_torch.pipeline import run_pipeline
     from nanoranger_torch.stages import barcode
     verify_rows = []          # candidate rows (C) of each one-vs-all launch
@@ -695,29 +716,41 @@ def run_mode(name, mode, infile, panel, genome, wl, out, card, golden,
         verify_rows.append(int(qq.shape[0]))
         return verify_all(qq, *a, **kw)
 
-    barcode.verify_all = recording_verify_all
+    barcode.verify_all = sharded.verify_all = recording_verify_all
+    wl_shards, data_shards = shards or (1, 1)
+    sharded.step_s = {} if shards else None
     try:
         torch.cuda.synchronize()
         kernels.reset_launches()
         t0 = time.time()
         run_pipeline(mode, infile, out, "t", trns_ref=panel,
-                     genome_ref=genome, barcodes=wl, device="cuda")
+                     genome_ref=genome, barcodes=wl, device="cuda",
+                     wl_shards=wl_shards, data_shards=data_shards)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(kernels.launches)
+        steps = sharded.step_s
     finally:
-        barcode.verify_all = verify_all
+        barcode.verify_all = sharded.verify_all = verify_all
+        sharded.step_s = None
     got = collect(out, "t", mode)
     with open(os.path.join(out, "t_runstats.json")) as f:
         stages = json.load(f)["stages"]
     n_reads = stages[0]["reads"]
-    emit({"phase": "main", "run": name, "mode": mode, "card": card,
-          "wall_s": round(wall, 3), "reads": n_reads,
+    emit({"phase": "sharded" if shards else "main", "run": name,
+          "mode": mode, "card": card, "wl_shards": wl_shards,
+          "data_shards": data_shards, "wall_s": round(wall, 3),
+          "reads": n_reads,
           "reads_per_s": round(n_reads / wall, 1), "launches": launches,
           "verify_rows_per_launch": verify_rows, "counts": got,
+          **({"tier_chunk": sharded.TIER_CHUNK,
+              "match_steps_host_wait_s": {k: [round(h, 4), round(w, 4)]
+                                          for k, (h, w) in steps.items()}}
+             if shards else {}),
           "stages": [{k: s[k] for k in ("stage", "seconds", "whitelist_s",
-                                        "records", "index_s", "align_s",
-                                        "cigar_s", "write_s")
+                                        "shard_tables_s", "records",
+                                        "index_s", "align_s", "cigar_s",
+                                        "write_s")
                       if k in s} for s in stages]})
     bad = {k: (got.get(k), v) for k, v in golden.items() if got.get(k) != v}
     if bad:
@@ -731,8 +764,73 @@ def run_mode(name, mode, infile, panel, genome, wl, out, card, golden,
     return launches, None
 
 
+def aten_calls(fn) -> int:
+    """The aten operator calls one call of fn dispatches, kernel launches
+    and views alike (counted by a TorchDispatchMode)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def tier_call_counts(dev, swl, spec, seqs):
+    """Aten calls of one call of each function of the sharded tier pass on
+    one shard's tables, at a tier chunk's rows (256) and a k562 data
+    block's (1,527): the host's share of the pass follows this count."""
+    import torch
+
+    from nanoranger_torch.io.encode import encode_batch
+    from nanoranger_torch.parallel.sharded import make_mesh
+    from nanoranger_torch.stages.barcode import boundary_flags, tier_hits
+    a = swl.device_arrays(make_mesh(1, swl.n_wl, [dev]))[0][0]
+    bl, pl, pr = spec.bc_len, spec.pad_left, spec.pad_right
+    out = {}
+    for n in (256, 1527):
+        q, qlen = encode_batch([seqs[i % len(seqs)] for i in range(n)],
+                               max_len=96)
+        q, qlen = torch.from_numpy(q).to(dev), torch.from_numpy(qlen).to(dev)
+        out[n] = {
+            "tier_hits": aten_calls(lambda: tier_hits(
+                q, qlen, a["ex_keys"], a["ex_idx"], bl, pl, pr)),
+            "tier_hits_rc": aten_calls(lambda: tier_hits(
+                q, qlen, a["rc_ex_keys"], a["rc_ex_idx"], bl, pr, pl,
+                any_only=True)),
+            "boundary_flags": aten_calls(lambda: boundary_flags(
+                q, qlen, a["bnd"][:4], bl, pl, pr))}
+    return out
+
+
+def artifact_digests(outdir):
+    """sha1 of each artifact's content: gunzipped, a BAM after BGZF
+    decompression; pdfs (they embed timestamps) and the run statistics
+    (timings) aside."""
+    import hashlib
+
+    from nanoranger_torch.io import bam
+    out = {}
+    for f in sorted(os.listdir(outdir)):
+        p = os.path.join(outdir, f)
+        if f.endswith((".pdf", "_runstats.json", ".tmp")):
+            continue
+        if f.endswith(".bam"):
+            data = bam._bgzf_decompress(p)
+        else:
+            with (gzip.open if f.endswith(".gz") else open)(p, "rb") as fh:
+                data = fh.read()
+        out[f] = hashlib.sha1(data).hexdigest()
+    return out
+
+
 # --------------------------------------------------------------------------
-# phase 5: the full-row rescorer on a run's real pairs
+# phase 6: the full-row rescorer on a run's real pairs
 
 def rescan_real_pairs(outdir, s, spec, device):
     """Every accepted row of {s}_assignments.csv.gz, candidate against the
@@ -821,6 +919,8 @@ def main() -> int:
     from nanoranger_torch.align.index import PanelIndex
     from nanoranger_torch.chemistry import get as get_spec
     from nanoranger_torch.io import fastq, whitelist
+    from nanoranger_torch.parallel import sharded
+    from nanoranger_torch.parallel.sharded import ShardedWhitelist
 
     dev = torch.device("cuda")
     card = card_line()
@@ -859,6 +959,14 @@ def main() -> int:
     rows = [("chain", res["chain"]), ("ed_wildcard_last", res["ed"]),
             ("ed_plain_first", ed_first), ("verify", res["verify"]),
             ("verify_C118_k562", v_k562), ("sw", res["sw"])]
+    # K4 as the sharded runs of phase 5 launch it: on one whitelist
+    # shard's cores at its r_valid (k562: 74 candidate rows against the
+    # last of 4 shards of the 737K list, 184,320 cores, all real)
+    swl = ShardedWhitelist(barcodes, spec.barcode, 4)
+    rows.append(("verify_C74_k562_shard", check_verify(verify_args(
+        dev, torch.from_numpy(swl.coreT[3]).to(dev), spec.barcode,
+        seqs[:37], int(swl.n_real[3])))[0]))
+    k562_shards = (swl, spec.barcode, seqs)     # phase 5's tier counts
 
     # ---- phase 2, the splice class at the genome stage's shapes (B=512)
     mt_batch = next(fastq.iter_batches(S1026, 512, max_len=4096))
@@ -909,6 +1017,11 @@ def main() -> int:
                                           (336,))
     rows += [("verify_m32_slideseq", r_v),
              ("verify_m32_C336_slideseq", r_v336), ("sw_band33", r_s)]
+    # and on the second of 2 slideseq shards: 8,877 cores, 8,876 real
+    swl = ShardedWhitelist(ss_barcodes, ss_spec, 2)
+    rows.append(("verify_m32_slideseq_shard", check_verify(verify_args(
+        dev, torch.from_numpy(swl.coreT[1]).to(dev), ss_spec, seqs,
+        int(swl.n_real[1])))[0]))
     for mode, bcs in (("5p10XGEX", barcodes), ("3pXCR_slideseq", ss_barcodes),
                       ("3p10XTCR_nuc", barcodes), ("3p10XGEX", barcodes)):
         r = check_sw_full(dev, bcs, get_spec(mode).barcode, rng)
@@ -931,7 +1044,7 @@ def main() -> int:
         print(card, flush=True)
         return 0
 
-    # ---- phases 3 to 5
+    # ---- phases 3 to 6
     by_run = {}
     with contextlib.ExitStack() as stack:
         tmp = lambda: stack.enter_context(
@@ -967,6 +1080,49 @@ def main() -> int:
             if why:
                 print(f"chip_smoke: {why}", file=sys.stderr)
                 return 1
+
+        # phase 5: the sharded runs, held to the unsharded outdirs
+        sharded_runs = [
+            # (run, unsharded run, (wl_shards, data_shards), least launches,
+            #  rows a tier chunk: None keeps the default)
+            ("k562_sharded", "k562", (4, 2), {"verify": 4, "sw": 1}, None),
+            ("slideseq_sharded", "slideseq", (2, 1),
+             {"verify": 2 * by_run["slideseq"]["verify"]}, None),
+            # the tier pass over each data block in one chunk: how much of
+            # the match is the host's issue of the chunk loop
+            ("k562_sharded_whole_block", "k562", (4, 2),
+             {"verify": 4, "sw": 1}, 1 << 20),
+        ]
+        default_chunk = sharded.TIER_CHUNK
+        for name, base, shards, least, chunk in sharded_runs:
+            spec_row = next(r for r in runs if r[0] == base)
+            out = tmp()
+            sharded.TIER_CHUNK = chunk or default_chunk
+            try:
+                by_run[name], why = run_mode(name, *spec_row[1:6], out,
+                                             card, spec_row[6], spec_row[7],
+                                             shards)
+            finally:
+                sharded.TIER_CHUNK = default_chunk
+            if why:
+                print(f"chip_smoke: {why}", file=sys.stderr)
+                return 1
+            got, want = artifact_digests(out), artifact_digests(outs[base])
+            differ = sorted(k for k in set(got) | set(want)
+                            if got.get(k) != want.get(k))
+            short = {k: (by_run[name][k], v) for k, v in least.items()
+                     if by_run[name][k] < v}
+            emit({"phase": "sharded_check", "run": name, "card": card,
+                  "artifacts": len(want), "differ": differ,
+                  "launches_below_least": short})
+            if differ or short:
+                print(f"chip_smoke: sharded run {name} differs from {base} "
+                      f"in {differ} or launched too few kernels {short}",
+                      file=sys.stderr)
+                return 1
+
+        emit({"phase": "tier_calls", "card": card,
+              "aten_calls_by_rows": tier_call_counts(dev, *k562_shards)})
 
         kernels.reset_launches()
         for name, mode in (("tcr3", "5p10XTCR"),

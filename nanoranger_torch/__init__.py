@@ -16,8 +16,9 @@ Layout mirrors the JAX package:
   vdj         — native clonotyper (V alignment on the device, CDR3 calls,
                 clone assembly and exports)
   runtime     — host C++ banded aligner (built by g++ at first use)
-  pipeline    — CLI entry point, all seven modes (no tagged BAM, no
-                sharding yet)
+  parallel    — data x whitelist sharding over a mesh of devices
+  tools       — multi-host fastq split and shard-output merge (copies)
+  pipeline    — CLI entry point, all seven modes, sharded or not
   convert     — carry the JAX package's index/whitelist arrays over
 """
 

@@ -296,31 +296,43 @@ def extract_exons(chain_out: dict, records: AlignmentRecords,
 
 
 class PanelAligner:
-    """End-to-end wrapper on one device.
+    """End-to-end wrapper on one device, or round-robin over several.
 
     preset "map-ont" (panels/transcriptomes) or "splice" (genomes:
-    intron-tolerant chaining, minimap2 -x splice analogue)."""
+    intron-tolerant chaining, minimap2 -x splice analogue).
+
+    devices: optional list of devices for data-parallel streaming — batch
+    i runs on devices[i % n] (pass shard= to _chain); the index tensors
+    are copied once to each distinct device, and the work follows the
+    batch's placement."""
 
     def __init__(self, index: PanelIndex, device,
-                 max_minimizers: int | None = None, preset: str = "map-ont"):
+                 max_minimizers: int | None = None, preset: str = "map-ont",
+                 devices: list | None = None):
         if preset not in ("map-ont", "splice"):
             raise ValueError(f"unknown preset {preset!r}")
         self.index = index
         self.device = torch.device(device)
         self.max_minimizers = max_minimizers
         self.max_intron = MAX_INTRON if preset == "splice" else 0
-        self._idx = prepare_index_arrays(index, self.device)
+        self.devices = ([torch.device(d) for d in devices] if devices
+                        else [self.device])
+        self._idx = {}
+        for d in self.devices:
+            if d not in self._idx:
+                self._idx[d] = prepare_index_arrays(index, d)
 
-    def _chain(self, codes: np.ndarray, lengths: np.ndarray) -> dict:
+    def _chain(self, codes: np.ndarray, lengths: np.ndarray,
+               shard: int = 0) -> dict:
         L = codes.shape[1]
         # minimizer density is ~2/(W+1) ~ 0.18; L/4 leaves headroom so long
         # concatemers keep their tail seeds
         m = self.max_minimizers or max(64, ((L // 4) + 63) // 64 * 64)
-        dev_codes = torch.from_numpy(np.ascontiguousarray(codes)).to(
-            self.device)
+        dev = self.devices[shard % len(self.devices)]
+        dev_codes = torch.from_numpy(np.ascontiguousarray(codes)).to(dev)
         dev_lengths = torch.from_numpy(
-            np.asarray(lengths, np.int32)).to(self.device)
-        out = seed_and_chain(dev_codes, dev_lengths, *self._idx,
+            np.asarray(lengths, np.int32)).to(dev)
+        out = seed_and_chain(dev_codes, dev_lengths, *self._idx[dev],
                              max_minimizers=m, max_intron=self.max_intron)
         # the uploaded batch rides along for the flank scan
         out["dev_codes"] = dev_codes

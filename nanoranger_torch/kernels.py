@@ -6,9 +6,9 @@ library with a plain C interface, loaded with ctypes. The libraries live in
 the compiler flags: a fresh checkout builds them at first use, all sources
 at once (one nvcc process each), and an unchanged tree reuses them.
 
-Every wrapper that launches a kernel goes through `launch`, which adds one
-to that kernel's count in `launches` and raises if the C entry point
-returns a non-zero cudaError_t. A run resets the counts with
+Every wrapper that launches a kernel goes through `launch`, which runs it
+on the card its tensors lie on, adds one to that kernel's count in
+`launches` and raises if the C entry point returns a non-zero cudaError_t. A run resets the counts with
 `reset_launches()` and reads them afterwards to show which kernels it went
 through.
 """
@@ -135,11 +135,20 @@ def entry(lib_name: str, fn_name: str, n_ptr: int, n_int: int,
 
 
 def launch(lib_name: str, fn, *args, counter: str | None = None) -> None:
-    """Call a C entry point on the current stream; raise on its error. The
+    """Call a C entry point on the current stream of the card its tensor
+    arguments lie on, with that card made current; raise on its error.
+    Tensors pass as their data pointers and must share one CUDA device. The
     launch counts under `counter` (default: the library's name)."""
-    stream = torch.cuda.current_stream().cuda_stream
-    launches[counter or lib_name] += 1
-    err = fn(*args, stream)
+    devs = {a.device for a in args if isinstance(a, torch.Tensor)}
+    if len(devs) != 1:
+        raise ValueError(f"{lib_name}: the tensor arguments must lie on one "
+                         f"CUDA device, got {sorted(map(str, devs))}")
+    (dev,) = devs
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        launches[counter or lib_name] += 1
+        err = fn(*ptrs, stream)
     if err != 0:
         raise RuntimeError(f"{lib_name} kernel launch failed: cudaError_t "
                            f"{err}")

@@ -107,9 +107,8 @@ def chain_dp(t, q, seg, valid, k_span: int, max_gap: int, bandwidth: int,
     parent = torch.empty((B, A), dtype=torch.int32, device=t.device)
     root = torch.empty((B, A), dtype=torch.int32, device=t.device)
     fn = kernels.entry("chain", "chain_dp", 7, 6, n_float=1)
-    kernels.launch("chain", fn, t.data_ptr(), q.data_ptr(), seg.data_ptr(),
-                   valid.data_ptr(), f.data_ptr(), parent.data_ptr(),
-                   root.data_ptr(), B, A, int(k_span), int(max_gap),
+    kernels.launch("chain", fn, t, q, seg, valid, f, parent, root, B, A,
+                   int(k_span), int(max_gap),
                    int(bandwidth), int(max_intron), float(splice_pen),
                    counter="chain_splice" if max_intron > 0 else "chain")
     return f, parent, root

@@ -122,8 +122,7 @@ def hw_locate(pattern, texts, lengths, k: int, wildcard: bool = False,
     start = torch.empty_like(dist)
     end = torch.empty_like(dist)
     fn = kernels.entry("ed", "hw_locate", 6, 6)
-    kernels.launch("ed", fn, pattern.data_ptr(), texts.data_ptr(),
-                   lengths.data_ptr(), dist.data_ptr(), start.data_ptr(),
-                   end.data_ptr(), m, R, W, int(k), int(bool(wildcard)),
+    kernels.launch("ed", fn, pattern, texts, lengths, dist, start, end, m,
+                   R, W, int(k), int(bool(wildcard)),
                    int(bool(pick_last)))
     return dist, start, end

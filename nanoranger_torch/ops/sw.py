@@ -111,9 +111,8 @@ def sw_end2end_banded(query, qlen, band, Lr: int, c_lo: int, c: int):
     qpos = torch.empty_like(score)
     valid = torch.empty(P, dtype=torch.bool, device=query.device)
     fn = kernels.entry("sw", "sw_banded", 6, 6)
-    kernels.launch("sw", fn, query.data_ptr(), qlen.data_ptr(),
-                   band.data_ptr(), score.data_ptr(), qpos.data_ptr(),
-                   valid.data_ptr(), P, Lq, nb, int(Lr), int(c_lo), int(c))
+    kernels.launch("sw", fn, query, qlen, band, score, qpos, valid, P, Lq,
+                   nb, int(Lr), int(c_lo), int(c))
     return score, qpos, valid
 
 
@@ -208,9 +207,8 @@ def sw_end2end_full(query, qlen, refs, rlen, umi_ref_offset: int):
     qpos = torch.empty_like(score)
     valid = torch.empty_like(score)
     fn = kernels.entry("sw_full", "sw_full", 7, 4)
-    kernels.launch("sw_full", fn, query.data_ptr(), qlen.data_ptr(),
-                   refs.data_ptr(), rlen.data_ptr(), score.data_ptr(),
-                   qpos.data_ptr(), valid.data_ptr(), P, Lq, Lr, c)
+    kernels.launch("sw_full", fn, query, qlen, refs, rlen, score, qpos,
+                   valid, P, Lq, Lr, c)
     return score, qpos, valid.bool()
 
 

@@ -127,9 +127,8 @@ def verify_all(q, qlen, coreT, r_valid: int, pad_left: int, pad_right: int):
     idx_b = torch.empty_like(best_b)
     ties_b = torch.empty_like(best_b)
     fn = kernels.entry("verify", "verify_all", 6, 7)
-    kernels.launch("verify", fn, q.data_ptr(), qlen.data_ptr(),
-                   coreT.data_ptr(), best_b.data_ptr(), idx_b.data_ptr(),
-                   ties_b.data_ptr(), C, Lq, m, R, int(r_valid),
+    kernels.launch("verify", fn, q, qlen, coreT, best_b, idx_b, ties_b, C,
+                   Lq, m, R, int(r_valid),
                    int(pad_left), int(pad_right))
     # cross-block merge: best is a max, ties sum at the best, and the
     # smallest row index at the best wins

@@ -10,7 +10,9 @@ whitelist has them, one-vs-all DP, banded UMI rescore) and their
 mode-specific tables; the clone modes run the native clonotyper over the
 subreads; 5p10XGEX with a genome that exists goes on to the genome stage
 (splice-preset alignment of the subreads, exon CIGARs, the CB/UB/XT-tagged
-BAM with its index). Sharding is not part of the package yet and raises.
+BAM with its index). wl_shards/data_shards > 1 run the match over a
+(data x wl) mesh of devices (parallel/sharded.py) and stream read batches
+round-robin over the data cells; their artifacts equal the unsharded run's.
 The artifacts are byte-identical to the JAX package's (after gunzip, the
 BAM after BGZF decompression; pdfs and run statistics aside):
 
@@ -52,6 +54,7 @@ import pickle
 import re
 import tempfile
 import time
+from collections import deque
 
 import numpy as np
 import pandas as pd
@@ -66,6 +69,7 @@ from .io.candidate_store import CandidateStore
 from .io.encode import COMPLEMENT, decode, encode_batch
 from .io.fasta import FastaWriter, iter_fasta
 from .ops.extend import extend_records_host
+from .parallel.sharded import ShardedMatcher, mesh_devices
 from .runtime.native_lib import banded_align_batch
 from .stages import clones as clone_stage
 from .stages import counting
@@ -142,13 +146,19 @@ class DeconRun:
     artifacts, batch by batch in input order (the JAX package's unfused
     path).
 
+    data_shards > 1 streams the batches over the data cells of a mesh:
+    batch i chains on cell i % data_shards (its flank scan runs where its
+    codes are) while earlier batches are assembled, up to data_shards in
+    flight, drained strictly in input order, so the artifacts are
+    byte-identical to one shard.
+
     Resume: when the stage artifacts already exist (and force=False), the
     BC-UMI candidates are reloaded from _BCUMI.fasta.gz instead of
     recomputing (writers use tmp+rename, so an existing file is
     complete)."""
 
     def __init__(self, spec, infile, outdir, sample, trns_ref, device,
-                 batch_size=2048, max_len=4096, force=False):
+                 batch_size=2048, max_len=4096, force=False, data_shards=1):
         self.spec = spec
         t0 = time.time()
         sub_kind = "VDJ" if spec.name in (
@@ -184,21 +194,28 @@ class DeconRun:
             return
 
         self.index = PanelIndex.from_fasta(trns_ref)
-        aligner = PanelAligner(self.index, device)
+        # batch i chains on data cell i % data_shards, the cells laid over
+        # the devices round-robin
+        aligner = PanelAligner(
+            self.index, device,
+            devices=mesh_devices(device) if data_shards > 1 else None)
         n_reads = n_sub = 0
+        pending: deque = deque()
         with fastq.FastqWriter(self.sub_path) as fsub, \
                 FastaWriter(self.bcumi_path) as fbc:
-            for batch in fastq.iter_batches(infile, batch_size,
-                                            max_len=max_len):
-                ch = aligner._chain(batch.codes, batch.lengths)
+
+            def drain():
+                nonlocal n_reads, n_sub
+                batch, ch = pending.popleft()
+                dev = ch["dev_codes"].device
                 rec = extract_records(ch, self.index)
                 # base-level DP extension of chain ends: qstart/qend match
                 # minimap2's extended spans, not terminal anchors
                 extend_records_host(rec, self.index, batch.codes,
-                                    np.asarray(batch.lengths), device)
+                                    np.asarray(batch.lengths), dev)
                 out = run_decon(spec, batch.codes, np.asarray(batch.lengths),
                                 batch.names, batch.quals, rec,
-                                self.index.names, sample, device=device,
+                                self.index.names, sample, device=dev,
                                 dev_codes=ch["dev_codes"])
                 for nm, sq, ql in zip(out.sub_names, out.sub_seqs,
                                       out.sub_quals):
@@ -212,6 +229,17 @@ class DeconRun:
                     self.raw_counts[k] = self.raw_counts.get(k, 0) + v
                 n_reads += len(batch)
                 n_sub += len(out.sub_names)
+
+            for i, batch in enumerate(fastq.iter_batches(
+                    infile, batch_size, max_len=max_len)):
+                # queue the batch's device work before draining older
+                # batches, so up to data_shards cells chain at once
+                pending.append((batch, aligner._chain(
+                    batch.codes, batch.lengths, shard=i % data_shards)))
+                if len(pending) > data_shards:
+                    drain()
+            while pending:
+                drain()
         self.n_reads = n_reads
         self.n_sub = n_sub
         log(f"align+decon: {n_reads} reads → {n_sub} subreads, "
@@ -271,12 +299,39 @@ def _match_fingerprint(spec, bcs_array, cands):
             "names_sha1": h.hexdigest()}
 
 
+def _matcher(bcs_array, spec, device, wl_shards=1, data_shards=1):
+    """The whitelist matcher: over a (data x wl) mesh of the devices
+    `device` names when sharded, else on `device` alone."""
+    if wl_shards > 1 or data_shards > 1:
+        return ShardedMatcher(bcs_array, spec.barcode, wl_shards,
+                              data_shards, mesh_devices(device))
+    return BarcodeMatcher(bcs_array, spec.barcode, device)
+
+
+def _write_score_hist(res, outdir, sample):
+    """{sample}_barcode_scores.csv/.pdf: the score histogram over reads
+    that would appear with flag==0 in the STAR SAM."""
+    status = res["status"]
+    vis = (status == ACCEPT) | (status == LOW_AS) | (status == BAD_UMI)
+    scores_df = counting.barcode_scores_table(res["score"][vis])
+    scores_df.columns = ["score", "count"]
+    scores_df.to_csv(f"{outdir}/{sample}_barcode_scores.csv", index=None)
+    counting.save_score_plot(f"{outdir}/{sample}_barcode_scores.pdf",
+                             scores_df, 8)
+
+
 def match_barcodes(spec, bcs_array, cands, outdir, sample, device,
-                   batch=4096, force=False, matcher=None):
+                   batch=4096, force=False, matcher=None, wl_shards=1,
+                   data_shards=1):
     """Whitelist match of accumulated candidates -> per-read assignment df
     + score histogram artifacts. The full assignment table persists as
     {sample}_assignments.csv.gz and is reloaded on resume when the run
-    fingerprint (input candidates + whitelist + chemistry) matches.
+    fingerprint (input candidates + whitelist + chemistry) matches; a
+    resumed outdir without the score histogram (a shard-merged one,
+    tools/merge_shards.py) gets it rebuilt from the loaded table.
+
+    wl_shards/data_shards > 1 match over a (data x wl) mesh
+    (parallel/sharded.ShardedMatcher) unless `matcher` is given.
 
     cands: a CandidateStore (consumed by sequential streaming)."""
     if not isinstance(cands, CandidateStore):
@@ -306,9 +361,15 @@ def match_barcodes(spec, bcs_array, cands, outdir, sample, device,
                                         np.int32)}
             log(f"resume: {len(df)} barcode assignments loaded from "
                 f"{os.path.basename(apath)}")
+            if not os.path.isfile(f"{outdir}/{sample}_barcode_scores.csv"):
+                _write_score_hist(res, outdir, sample)
             return df, res
     t0 = time.time()
-    m = matcher or BarcodeMatcher(bcs_array, spec.barcode, device)
+    m = matcher or _matcher(bcs_array, spec, device, wl_shards, data_shards)
+    if isinstance(m, ShardedMatcher):
+        n_data, n_wl = m.mesh.shape
+        log(f"whitelist match on a {n_data}x{n_wl} (data x wl) device mesh "
+            f"over {len(m.mesh.devices)} device(s)")
     all_res = {k: [] for k in ("bc_idx", "score", "status", "umi")}
     for _, bs in cands.iter_batches(batch):
         q, qlen = encode_batch(bs, max_len=MATCH_LQ)
@@ -319,13 +380,7 @@ def match_barcodes(spec, bcs_array, cands, outdir, sample, device,
            for k, v in all_res.items()}
     status = res["status"]
     acc = status == ACCEPT
-    # histogram over reads that would appear with flag==0 in the STAR SAM
-    vis = acc | (status == LOW_AS) | (status == BAD_UMI)
-    scores_df = counting.barcode_scores_table(res["score"][vis])
-    scores_df.columns = ["score", "count"]
-    scores_df.to_csv(f"{outdir}/{sample}_barcode_scores.csv", index=None)
-    counting.save_score_plot(f"{outdir}/{sample}_barcode_scores.pdf",
-                             scores_df, 8)
+    _write_score_hist(res, outdir, sample)
     umi_strs = ["" if not a else decode(u)
                 for a, u in zip(acc, res["umi"])]
     df = pd.DataFrame({
@@ -575,10 +630,6 @@ def run_pipeline(mode, infile, outdir, sample, trns_ref=None, genome_ref=None,
                  barcodes=None, xpecies=None, batch_size=2048, force=False,
                  wl_shards=1, data_shards=1, scrub=False, device="cuda"):
     dev = resolve_device(device)
-    if wl_shards > 1 or data_shards > 1:
-        raise NotImplementedError(
-            "wl_shards/data_shards > 1: sharding arrives with the "
-            "torch.distributed slice of the port")
     spec = chemistry.get(mode)
     dflt = MODE_DEFAULTS[mode]
     trns_ref = trns_ref or os.path.join(DATA_DIR, dflt[0])
@@ -591,26 +642,31 @@ def run_pipeline(mode, infile, outdir, sample, trns_ref=None, genome_ref=None,
     tele = Telemetry(mode, infile, dev)
     ts = time.time()
     # modes whose whitelist is known up front (everything but the
-    # data-driven 3p10XGEX) load it and build the matcher's tables first;
-    # a missing file is reported after decon, as the JAX package does
+    # data-driven 3p10XGEX) load it and build the matcher's tables first
+    # (over the mesh when sharded); a missing file is reported after decon,
+    # as the JAX package does
     bcs = None
     matcher = None
+    shard_tables_s = None
     if mode not in ("RTX", "3p10XGEX"):
         try:
             bcs = _load_whitelist(barcodes, mode)
         except SystemExit:
             bcs = None
         if bcs is not None and len(bcs):
-            matcher = BarcodeMatcher(bcs, spec.barcode, dev)
+            matcher = _matcher(bcs, spec, dev, wl_shards, data_shards)
+        if isinstance(matcher, ShardedMatcher):
+            shard_tables_s = round(matcher.build_s, 3)
     # the stage keeps the JAX package's bounds (whitelist tables included);
     # their share rides along as whitelist_s
     whitelist_s = round(time.time() - ts, 3)
     run = DeconRun(spec, infile, outdir, sample, trns_ref, dev, batch_size,
-                   force=force)
+                   force=force, data_shards=data_shards)
     run.write_eds(outdir, sample)
     tele.stage("align_decon", time.time() - ts, run.n_reads,
                subreads=run.n_sub, candidates=len(run.cands),
-               resumed=run.resumed, whitelist_s=whitelist_s)
+               resumed=run.resumed, whitelist_s=whitelist_s,
+               shard_tables_s=shard_tables_s)
 
     if mode == "RTX":
         ts = time.time()
@@ -648,7 +704,8 @@ def run_pipeline(mode, infile, outdir, sample, trns_ref=None, genome_ref=None,
 
     ts = time.time()
     df, res = match_barcodes(spec, bcs, run.cands, outdir, sample, dev,
-                             force=force, matcher=matcher)
+                             force=force, matcher=matcher,
+                             wl_shards=wl_shards, data_shards=data_shards)
     tele.stage("barcode_match", time.time() - ts, len(run.cands),
                accepted=int((df.status == ACCEPT).sum()),
                whitelist=int(len(bcs)))

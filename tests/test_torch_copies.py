@@ -1,8 +1,11 @@
 """The JAX-free host modules the PyTorch port carries as its own copies
 (chemistry, io, stages/counting) give what the JAX package's give; the
 tagged-BAM writer and reader (io/bam.py) and the downstream readers of the
-BAM (downstream/*) hold the same code as the JAX package's."""
+BAM (downstream/*) hold the same code as the JAX package's, and so do the
+multi-host tools (tools/split_fastq.py, tools/merge_shards.py) but for
+their import lines and the device the merge's pipeline tail runs on."""
 
+import ast
 import dataclasses
 import os
 
@@ -21,6 +24,8 @@ from nanoranger_tpu.downstream import pileup as jax_pileup
 from nanoranger_tpu.downstream import read_stats as jax_read_stats
 from nanoranger_tpu.io import bam as jax_bam
 from nanoranger_tpu.stages import counting as jax_counting
+from nanoranger_tpu.tools import merge_shards as jax_merge_shards
+from nanoranger_tpu.tools import split_fastq as jax_split_fastq
 
 from test_torch_vdj import _code_of
 
@@ -30,6 +35,7 @@ from nanoranger_torch.downstream import (fusion_gene, isoforms, pileup,
 from nanoranger_torch.io import bam, encode, fasta, fastq, whitelist
 from nanoranger_torch.io.candidate_store import CandidateStore
 from nanoranger_torch.stages import counting
+from nanoranger_torch.tools import merge_shards, split_fastq
 
 torch.set_num_threads(1)
 
@@ -122,3 +128,65 @@ def test_umi_dedup_table_equal(rng):
     ids=["bam", "fusion_gene", "isoforms", "pileup", "read_stats"])
 def test_bam_and_downstream_copies_hold_the_same_code(port, ref):
     assert _code_of(port) == _code_of(ref)
+
+
+class _ToolPlumbing(ast.NodeTransformer):
+    """Takes out of a tool's syntax tree its import lines, and what the
+    port adds to run the merge's pipeline tail on a chosen device: the
+    `device` parameter, the `device=` keyword, the trailing `a.device`
+    argument and the --device flag; the program's name reads as the JAX
+    package's."""
+
+    def visit_Import(self, node):
+        return None
+
+    visit_ImportFrom = visit_Import
+
+    def visit_arguments(self, node):
+        keep = [a for a in node.args if a.arg != "device"]
+        node.defaults = node.defaults[:len(node.defaults)
+                                      - (len(node.args) - len(keep))]
+        node.args = keep
+        return self.generic_visit(node)
+
+    def visit_Call(self, node):
+        node.keywords = [k for k in node.keywords if k.arg != "device"]
+        node.args = [a for a in node.args
+                     if not (isinstance(a, ast.Attribute)
+                             and a.attr == "device")]
+        return self.generic_visit(node)
+
+    def visit_Expr(self, node):
+        c = node.value
+        if (isinstance(c, ast.Call) and c.args
+                and isinstance(c.args[0], ast.Constant)
+                and c.args[0].value == "--device"):
+            return None
+        return self.generic_visit(node)
+
+    def visit_Constant(self, node):
+        if isinstance(node.value, str):
+            node.value = node.value.replace("nanoranger-torch",
+                                            "nanoranger-tpu")
+        return node
+
+
+def _tool_code(module):
+    """The tool's syntax tree without docstrings, comments and plumbing."""
+    with open(module.__file__) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body
+                and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            body.pop(0)
+    return ast.dump(_ToolPlumbing().visit(tree))
+
+
+@pytest.mark.parametrize("port,ref", [
+    (split_fastq, jax_split_fastq), (merge_shards, jax_merge_shards)],
+    ids=["split_fastq", "merge_shards"])
+def test_tools_copies_hold_the_same_code(port, ref):
+    assert _tool_code(port) == _tool_code(ref)

@@ -2,26 +2,40 @@
 versions on the card, at ragged shapes and edges the main paths do not
 exercise (chip_smoke.py holds them at the main-path shapes); the chain DP
 in both of its gap classes, the adapter scan at the word boundaries of its
-bit vectors, the banded rescore at the pipeline's pair counts. Every test is marked `cuda` and skips
-without a card. The file imports neither JAX nor the JAX package, so on a
+bit vectors, the banded rescore at the pipeline's pair counts, the
+one-vs-all DP at the r_valid of whitelist shard tails; and the sharded
+matcher with every mesh cell on the card against the card's single-device
+matcher. Every test is marked `cuda` and skips without a card. The file imports neither JAX nor the JAX package, so on a
 machine with a card and no JAX it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from nanoranger_torch import kernels
-from nanoranger_torch.io.encode import N, PAD
+from nanoranger_torch import chemistry, kernels
+from nanoranger_torch.chemistry import SLIDESEQ_LINKER
+from nanoranger_torch.io import whitelist
+from nanoranger_torch.io.encode import N, PAD, encode_batch
 from nanoranger_torch.ops.chain import chain_dp, chain_dp_plain
 from nanoranger_torch.ops.edit_distance import hw_locate, hw_locate_plain
 from nanoranger_torch.ops.sw import (sw_banded_plain, sw_end2end,
                                      sw_end2end_banded, sw_end2end_plain)
 from nanoranger_torch.ops.whitelist_verify import verify_all, verify_all_plain
+from nanoranger_torch.parallel.sharded import (ShardedWhitelist,
+                                               build_sharded_match, make_mesh)
+from nanoranger_torch.stages.barcode import BarcodeMatcher, revcomp_rows
 
 torch.set_num_threads(1)
+
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "data")
+WL_737K = os.path.join(DATA, "737K-august-2016.txt.gz")
+WL_SLIDESEQ = os.path.join(DATA, "slideseq.matched.barcodes.tsv.gz")
 
 pytestmark = pytest.mark.cuda
 
@@ -593,3 +607,136 @@ def test_wrappers_refuse_bad_tensors(dev):
         chain_dp(t, t.cpu(), t, valid, 15, 5000, 500)
     with pytest.raises(ValueError, match="bandwidth"):
         chain_dp(t, t, t, valid, 15, 5000, 10240)
+
+
+COMP = str.maketrans("ACGT", "TGCA")
+
+
+def _edit(rng, bc, n_edits):
+    bc = list(bc)
+    for _ in range(n_edits):
+        i = int(rng.integers(len(bc)))
+        op = int(rng.integers(3))
+        if op == 0:
+            bc[i] = "ACGT"[int(rng.integers(4))]
+        elif op == 1:
+            del bc[i]
+        else:
+            bc.insert(i, "ACGT"[int(rng.integers(4))])
+    return "".join(bc)
+
+
+def _match_candidates(rng, spec, barcodes, n):
+    """BC-UMI candidates laid out as the mode's slice: lead-in, barcode
+    (around the linker for slideseq rows), UMI, tail; exact, with one edit,
+    with 2-4 edits (the DP), with an N, on the reverse strand, cut short,
+    empty."""
+    seqs = []
+    for i in range(n - 2):
+        bc = barcodes[int(rng.integers(len(barcodes)))]
+        kind = i % 6
+        if kind == 2:
+            bc = _edit(rng, bc, 1)
+        elif kind == 3:
+            bc = _edit(rng, bc, int(rng.integers(2, 5)))
+        elif kind == 4:
+            bc = bc[:3] + "N" + bc[4:]
+        core = (bc[:8] + SLIDESEQ_LINKER + bc[8:] if spec.slideseq_linker
+                else bc)
+        lead = "".join(rng.choice(list("ACGT"),
+                                  spec.bc_query_offset + int(rng.integers(3))))
+        umi = "".join(rng.choice(list("ACGT"), spec.umi_len))
+        s = lead + core + umi + "".join(rng.choice(list("ACGT"),
+                                                   int(rng.integers(0, 6))))
+        if kind == 5:
+            s = s[::-1].translate(COMP)
+        if i % 11 == 10:
+            s = s[:len(lead) + len(core) + 3]          # UMI cut short
+        seqs.append(s)
+    return encode_batch(seqs + ["", "ACGT"], max_len=96)
+
+
+@pytest.fixture(scope="module")
+def wl_737k():
+    return whitelist.load(WL_737K)
+
+
+@pytest.mark.parametrize("source,mode,n_wl,shard", [
+    ("737K", "5p10XGEX", 3, 2),       # 245,760 rows, all real
+    ("737K", "5p10XGEX", 4, 3),       # 184,320 rows, all real
+    ("slideseq", "3pXCR_slideseq", 3, 2),   # 5,918 rows, 5,917 real (odd)
+    ("slideseq", "3pXCR_slideseq", 4, 3),   # 4,439 rows, 4,436 real
+    ("five", "5p10XGEX", 4, 2),       # 2 rows, 1 real (odd)
+    ("five", "5p10XGEX", 4, 3),       # 2 rows, none real
+])
+def test_verify_kernel_at_shard_tails(dev, wl_737k, source, mode, n_wl,
+                                      shard):
+    """K4 on a whitelist shard's own core table at its r_valid = n_real,
+    the padding rows past it included, equals its plain version."""
+    spec = chemistry.get(mode).barcode
+    rng = np.random.default_rng(n_wl * 10 + shard)
+    if source == "737K":
+        bcs = wl_737k
+    elif source == "slideseq":
+        bcs = whitelist.load(WL_SLIDESEQ)
+    else:
+        bcs = wl_737k[rng.choice(len(wl_737k), 5, replace=False)]
+    swl = ShardedWhitelist(bcs, spec, n_wl)
+    per, r_valid = swl.per_shard, int(swl.n_real[shard])
+    real = swl.barcodes[shard * per:shard * per + max(r_valid, 1)]
+    q, qlen = (torch.from_numpy(a).to(dev)
+               for a in _match_candidates(rng, spec, real, 40))
+    # forward and reverse-complement rows in one launch, as the matcher
+    args = (torch.cat([q, revcomp_rows(q, qlen)]).contiguous(),
+            torch.cat([qlen, qlen]),
+            torch.from_numpy(np.ascontiguousarray(swl.coreT[shard])).to(dev),
+            r_valid, spec.pad_left, spec.pad_right)
+    before = kernels.launches["verify"]
+    got = verify_all(*args)
+    assert kernels.launches["verify"] == before + 1
+    want = verify_all_plain(*args)
+    _equal(got, want)
+    if r_valid == 0:
+        assert int(want[1].max()) == -1
+    else:
+        assert int((want[0] == swl.core_len).sum()) > 0   # exact cores won
+
+
+@pytest.mark.parametrize("mode,shape", [
+    ("5p10XGEX", (2, 4)), ("5p10XGEX", (1, 4)), ("3pXCR_slideseq", (2, 4))])
+def test_sharded_match_on_one_card(dev, wl_737k, mode, shape):
+    """build_sharded_match with every mesh cell on the card (K4 once per
+    shard and chunk, K5 on the owning shard) equals the card's
+    single-device BarcodeMatcher and the sharded matcher on the CPU."""
+    spec = chemistry.get(mode).barcode
+    rng = np.random.default_rng(sum(shape) + len(mode))
+    src = wl_737k if mode == "5p10XGEX" else whitelist.load(WL_SLIDESEQ)
+    wl = np.sort(src[rng.choice(len(src), 2001, replace=False)])
+    n = 256 if mode == "5p10XGEX" else 128
+    q, qlen = _match_candidates(rng, spec, wl, n)
+    n_data, n_wl = shape
+
+    def sharded(device):
+        mesh = make_mesh(n_data, n_wl, devices=[device])
+        swl = ShardedWhitelist(wl, spec, n_wl)
+        out = build_sharded_match(swl, mesh)(q, qlen,
+                                             swl.device_arrays(mesh))
+        return [x.cpu().numpy() for x in out]
+
+    before = dict(kernels.launches)
+    bc, score, status, umi, counts = sharded(torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    assert kernels.launches["verify"] - before["verify"] >= n_wl
+    assert (kernels.launches["verify"] - before["verify"]) % n_wl == 0
+    assert kernels.launches["sw"] > before["sw"]
+    ref = BarcodeMatcher(wl, spec, dev).match(q, qlen)
+    for k, v in (("status", status), ("bc_idx", bc), ("score", score),
+                 ("umi", umi)):
+        np.testing.assert_array_equal(v, ref[k], err_msg=k)
+    acc = status == 0
+    np.testing.assert_array_equal(
+        counts.reshape(-1), np.bincount(bc[acc], minlength=counts.size))
+    assert acc.sum() >= n // 4 and len(set(status.tolist())) >= 4
+    for v, w in zip((bc, score, status, umi, counts),
+                    sharded(torch.device("cpu"))):
+        np.testing.assert_array_equal(v, w)
