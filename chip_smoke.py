@@ -24,15 +24,25 @@ Phases, each of which must pass or the script exits non-zero:
                run's last (336), and on one whitelist shard at its r_valid
                as phase 5 launches it (74 rows against the last of 4 shards
                of the 737K list; the slideseq candidates against the second
-               of 2 slideseq shards, one padding row past r_valid); one
-               JSON line per kernel and shape with its time, the plain
-               version's time and the mismatches
+               of 2 slideseq shards, one padding row past r_valid), and
+               the fused step's shapes: the chain DP at the anchor slots
+               of each length bucket (A = 1024, 2048, 4096) on K562 reads
+               of that bucket, the adapter scan over the B*S = 8192
+               record slots of a 1024-bucket batch; one JSON line per
+               kernel and shape with its time, the plain version's time
+               and the mismatches
   3. main    — run nanoranger_torch.pipeline.run_pipeline("5p10XGEX") on
                the K562 sample against the full 737,280-row whitelist,
-               genome stage included, hold the artifacts to the K562 golden
-               counts (tests/goldens/real_samples.json, the tagged BAM's
-               record count and the run's stages included), and check
-               that every kernel of that path was launched by the run
+               genome stage included, on its default (fused) path, hold
+               the artifacts to the K562 golden counts
+               (tests/goldens/real_samples.json, the tagged BAM's record
+               count and the run's stages included), check that every
+               kernel of that path was launched by the run, and the chain
+               DP and the adapter scan from inside the fused step; then
+               its unfused twin (fast=False), every artifact of the two
+               outdirs equal (after gunzip, the BAM after BGZF), with one
+               line of both walls, steady_reads_per_s, phase_s, deferred
+               reads and the launches of both
   4. modes   — the same for the other three 5p10XGEX samples with their
                genomes (1022 and 1026 against panel_MT_trns.fa and
                MT_chr.fa, 97_6_CAR against CAR_CD28.fa), for 5p10XTCR on
@@ -52,12 +62,18 @@ Phases, each of which must pass or the script exits non-zero:
                whole (one chunk where the default takes 6), held the same;
                the aten calls one call of each tier function dispatches,
                at a chunk's rows and at a data block's
+  bench   — the bench.py _cli_bench shape: K562 tiled to 20,000 reads,
+               the RUNX1 panel, the full 737K list, no genome, batch 2048,
+               fused and unfused in turns (fused, unfused, unfused, fused),
+               each pair's artifacts equal; wall, reads/s and
+               steady_reads_per_s of each; then one fused run under
+               torch.profiler for the card's kernel time
   6. rescan  — the full-row rescorer on the real pairs of the two barcoded
                runs of phase 4: every accepted candidate against the full
                padded row of its barcode must give the banded rescorer's
                score, validity and position, and the UMI of the table
-Then it prints the kernel summary line, the card line, and as the last
-line {"ok": true, "device": {...}}.
+Then it prints the seconds of each phase, the kernel summary line, the
+card line, and as the last line {"ok": true, "device": {...}}.
 
 It needs a CUDA card and the repository around it: without a card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -342,6 +358,65 @@ def flank_windows(dev, spec, index, batch, ch=None):
         tt(batch.codes), tt(np.asarray(batch.lengths, np.int32)),
         tt(rec.read_idx.astype(np.int32)), tt(rec.strand.astype(np.int32)),
         tt(rec.qstart.astype(np.int32)), tt(rec.qend.astype(np.int32)),
+        0 if f.anchor == "qstart" else 1, f.lo, f.hi)[:2]
+
+
+FUSED_BUCKETS = (1024, 2048, 4096)
+
+
+def bucket_batch(reads, Lb, B=2048):
+    """(codes (B, Lb), lengths) of the fused path's Lb bucket, filled by
+    cycling through the reads of `reads` (a ReadBatch of a whole sample)
+    whose length falls in that bucket (lengths cut at the widest bucket),
+    as a run of the sample tiled to many reads fills it."""
+    import numpy as np
+
+    from nanoranger_torch.io.encode import PAD
+    lens = np.minimum(np.asarray(reads.lengths), FUSED_BUCKETS[-1])
+    lo = max([b for b in (0, *FUSED_BUCKETS) if b < Lb])
+    rows = np.resize(np.flatnonzero((lens > lo) & (lens <= Lb)), B)
+    codes = np.full((B, Lb), PAD, np.int8)
+    w = min(reads.codes.shape[1], Lb)
+    codes[:, :w] = reads.codes[rows, :w]
+    return codes, lens[rows].astype(np.int32)
+
+
+def fused_chain(dev, index, codes, lengths):
+    """The fused step's seed and chain of one bucket batch: the anchor
+    slots of its max_minimizers (256, 512, 1024 for the three buckets)."""
+    import torch
+
+    from nanoranger_torch.align.aligner import (prepare_index_arrays,
+                                                seed_and_chain)
+    L = codes.shape[1]
+    m = max(64, ((L // 4) + 63) // 64 * 64)
+    tc = torch.from_numpy(codes).to(dev)
+    tl = torch.from_numpy(lengths).to(dev)
+    return tc, tl, seed_and_chain(tc, tl, *prepare_index_arrays(index, dev),
+                                  max_minimizers=m)
+
+
+def fused_slot_windows(dev, spec, index, codes, lengths, S=4):
+    """The flank windows of all B*S record slots that the fused step's
+    adapter scan sees for one bucket batch (empty slots included)."""
+    import numpy as np
+    import torch
+
+    from nanoranger_torch.stages.cli_step import _extend_slots, _records_exact
+    from nanoranger_torch.stages.decon import _gather_flanks
+    tc, tl, ch = fused_chain(dev, index, codes, lengths)
+    ref_lens = torch.from_numpy(index.ref_lens.astype(np.int32)).to(dev)
+    rec = _records_exact(ch, tl, ref_lens, S)
+    ext = _extend_slots(
+        tc, tl, rec, torch.from_numpy(np.concatenate(index.seq_codes)).to(
+            dev), torch.from_numpy(index.ref_offset.astype(np.int32)).to(dev),
+        ref_lens, S)
+    B = codes.shape[0]
+    f = spec.flank
+    return _gather_flanks(
+        tc, tl, torch.arange(B, dtype=torch.int32, device=dev)
+        .repeat_interleave(S), rec["strand"].reshape(-1),
+        ext["qstart"].reshape(-1), ext["qend"].reshape(-1),
         0 if f.anchor == "qstart" else 1, f.lo, f.hi)[:2]
 
 
@@ -647,6 +722,21 @@ def ptxas_report(out_dir: str) -> int:
 # --------------------------------------------------------------------------
 # phases 3 and 4: the main paths
 
+def tile_fastq(src, n_reads, dst):
+    """Write `src` repeated (read names prefixed t<k>_) until it holds
+    n_reads reads, as bench.py's _cli_bench does; returns the read count."""
+    with gzip.open(src, "rt") as f:
+        lines = f.read().splitlines(keepends=True)
+    n_src = len(lines) // 4
+    reps = -(-n_reads // n_src)
+    with gzip.open(dst, "wt", compresslevel=1) as g:
+        for t in range(reps):
+            for i in range(0, len(lines), 4):
+                g.write(f"@t{t}_{lines[i][1:]}")
+                g.writelines(lines[i + 1:i + 4])
+    return reps * n_src
+
+
 def count_fastq(path):
     n = tot = 0
     with gzip.open(path, "rt") as f:
@@ -698,50 +788,75 @@ def collect(outdir, s, mode):
 
 
 def run_mode(name, mode, infile, panel, genome, wl, out, card, golden,
-             expect, shards=None):
+             expect, shards=None, fast=None, batch_size=2048):
     """One run of run_pipeline on the card with the launch counts set to 0
     just before and read just after; `shards` is (wl_shards, data_shards),
     and a sharded run times the steps of its match (which synchronises the
-    card at each step's end). Returns (launches, failure or None)."""
+    card at each step's end); fast=False takes the unfused path. The
+    launches made inside the fused step's calls are counted apart
+    (`step_launches`). Returns (launches, failure or None); the run's line
+    is kept in RUN_LINES[name]."""
     import torch
 
-    from nanoranger_torch import kernels
+    from nanoranger_torch import kernels, pipeline
     from nanoranger_torch.parallel import sharded
-    from nanoranger_torch.pipeline import run_pipeline
     from nanoranger_torch.stages import barcode
     verify_rows = []          # candidate rows (C) of each one-vs-all launch
     verify_all = barcode.verify_all
+    build_cli_step = pipeline.build_cli_step
+    in_step = dict.fromkeys(kernels.launches, 0)
 
     def recording_verify_all(qq, *a, **kw):
         verify_rows.append(int(qq.shape[0]))
         return verify_all(qq, *a, **kw)
 
+    def counting_build(*a, **kw):
+        step, tables = build_cli_step(*a, **kw)
+
+        def counted(*sa):
+            before = dict(kernels.launches)
+            out = step(*sa)
+            for k, v in kernels.launches.items():
+                in_step[k] += v - before[k]
+            return out
+        return counted, tables
+
     barcode.verify_all = sharded.verify_all = recording_verify_all
+    pipeline.build_cli_step = counting_build
     wl_shards, data_shards = shards or (1, 1)
     sharded.step_s = {} if shards else None
     try:
         torch.cuda.synchronize()
         kernels.reset_launches()
         t0 = time.time()
-        run_pipeline(mode, infile, out, "t", trns_ref=panel,
-                     genome_ref=genome, barcodes=wl, device="cuda",
-                     wl_shards=wl_shards, data_shards=data_shards)
+        pipeline.run_pipeline(mode, infile, out, "t", trns_ref=panel,
+                              genome_ref=genome, barcodes=wl, device="cuda",
+                              wl_shards=wl_shards, data_shards=data_shards,
+                              fast=fast, batch_size=batch_size)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(kernels.launches)
         steps = sharded.step_s
     finally:
         barcode.verify_all = sharded.verify_all = verify_all
+        pipeline.build_cli_step = build_cli_step
         sharded.step_s = None
-    got = collect(out, "t", mode)
+    got = collect(out, "t", mode) if golden is not None else {}
     with open(os.path.join(out, "t_runstats.json")) as f:
         stages = json.load(f)["stages"]
     n_reads = stages[0]["reads"]
-    emit({"phase": "sharded" if shards else "main", "run": name,
-          "mode": mode, "card": card, "wl_shards": wl_shards,
-          "data_shards": data_shards, "wall_s": round(wall, 3),
-          "reads": n_reads,
-          "reads_per_s": round(n_reads / wall, 1), "launches": launches,
+    line = {"phase": "sharded" if shards else "main", "run": name,
+            "mode": mode, "card": card, "wl_shards": wl_shards,
+            "data_shards": data_shards,
+            "path": "fused" if "phase_s" in stages[0] else "unfused",
+            "wall_s": round(wall, 3), "reads": n_reads,
+            "reads_per_s": round(n_reads / wall, 1),
+            "steady_reads_per_s": stages[0].get("steady_reads_per_s"),
+            "deferred_reads": stages[0].get("deferred_reads", 0),
+            "phase_s": stages[0].get("phase_s"), "launches": launches,
+            "step_launches": in_step}
+    RUN_LINES[name] = line
+    emit({**line,
           "verify_rows_per_launch": verify_rows, "counts": got,
           **({"tier_chunk": sharded.TIER_CHUNK,
               "match_steps_host_wait_s": {k: [round(h, 4), round(w, 4)]
@@ -752,6 +867,8 @@ def run_mode(name, mode, infile, panel, genome, wl, out, card, golden,
                                         "index_s", "align_s", "cigar_s",
                                         "write_s")
                       if k in s} for s in stages]})
+    if golden is None:          # a run held only to its twin
+        return launches, None
     bad = {k: (got.get(k), v) for k, v in golden.items() if got.get(k) != v}
     if bad:
         return launches, (f"run {name} differs from its golden "
@@ -762,6 +879,41 @@ def run_mode(name, mode, infile, panel, genome, wl, out, card, golden,
     if idle:
         return launches, f"run {name} never launched {idle}"
     return launches, None
+
+
+RUN_LINES: dict = {}
+
+
+def twin_check(name, fused_out, unfused_out, card, in_step=("chain",)):
+    """The fused run against its unfused twin: every artifact's digest
+    equal, and the kernels `in_step` launched from inside the fused step.
+    Emits one line with both runs' walls, the fused run's
+    steady_reads_per_s, phase_s and deferred reads, and the K1-K5 launches
+    of both. Returns a failure or None."""
+    f, u = RUN_LINES[name], RUN_LINES[name + "_unfused"]
+    got, want = artifact_digests(fused_out), artifact_digests(unfused_out)
+    differ = sorted(k for k in set(got) | set(want)
+                    if got.get(k) != want.get(k))
+    k15 = ("chain", "ed", "verify", "sw", "chain_splice")
+    emit({"phase": "twins", "run": name, "card": card,
+          "fused_wall_s": f["wall_s"], "unfused_wall_s": u["wall_s"],
+          "fused_reads_per_s": f["reads_per_s"],
+          "unfused_reads_per_s": u["reads_per_s"],
+          "steady_reads_per_s": f["steady_reads_per_s"],
+          "phase_s": f["phase_s"], "deferred_reads": f["deferred_reads"],
+          "fused_launches": {k: f["launches"][k] for k in k15},
+          "fused_step_launches": {k: f["step_launches"][k] for k in k15},
+          "unfused_launches": {k: u["launches"][k] for k in k15},
+          "artifacts": len(want), "differ": differ})
+    if f["path"] != "fused" or u["path"] != "unfused":
+        return f"run {name}: the twins took paths {f['path']}/{u['path']}"
+    if differ:
+        return f"run {name}: the fused artifacts differ from the unfused in "\
+            f"{differ}"
+    idle = [k for k in in_step if f["step_launches"][k] <= 0]
+    if idle:
+        return f"run {name}: the fused step never launched {idle}"
+    return None
 
 
 def aten_calls(fn) -> int:
@@ -806,6 +958,37 @@ def tier_call_counts(dev, swl, spec, seqs):
             "boundary_flags": aten_calls(lambda: boundary_flags(
                 q, qlen, a["bnd"][:4], bl, pl, pr))}
     return out
+
+
+def device_time(infile, out):
+    """One fused 5p10XGEX run of `infile` (the cli_bench shape) under
+    torch.profiler: the card's kernel time summed over the run (one
+    stream, so kernels do not overlap), the profiled wall, and the ten
+    kernels with the most time. The profiler adds host time to every op,
+    so the profiled wall is longer than an unprofiled run's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nanoranger_torch.pipeline import run_pipeline
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_pipeline("5p10XGEX", infile, out, "t", trns_ref=PANEL,
+                     genome_ref="/nonexistent", barcodes=WHITELIST,
+                     device="cuda")
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_s = sum(e.self_device_time_total for e in kern) / 1e6
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+    return {"profiled_wall_s": round(wall, 3),
+            "kernel_s": round(dev_s, 4), "kernel_launches": int(sum(
+                e.count for e in kern)),
+            "top_kernels": [[e.key[:60], round(e.self_device_time_total
+                                               / 1e3, 3), e.count]
+                            for e in top]}
 
 
 def artifact_digests(outdir):
@@ -927,12 +1110,21 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "card", "card": card, "kind": kind,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    phase_s = {}
+    t_phase = [time.time()]
+
+    def phase_done(name):
+        now = time.time()
+        phase_s[name] = round(now - t_phase[0], 2)
+        t_phase[0] = now
+
     t0 = time.time()
     kernels.build_all()
     emit({"phase": "build", "seconds": round(time.time() - t0, 2),
           "libraries": sorted(kernels.SOURCES),
           "dir": os.path.relpath(kernels.build_dir(), HERE)})
 
+    phase_done("1_card_build")
     # the launch floor: one launch that does nothing, in the same timer
     one = torch.zeros(1, device=dev)
     emit({"phase": "launch_floor", "card": card, "what": "one-element fill_",
@@ -959,6 +1151,20 @@ def main() -> int:
     rows = [("chain", res["chain"]), ("ed_wildcard_last", res["ed"]),
             ("ed_plain_first", ed_first), ("verify", res["verify"]),
             ("verify_C118_k562", v_k562), ("sw", res["sw"])]
+    # the fused step's shapes (phase 3's default path): K1 at each length
+    # bucket's anchor slots, on K562 reads of that bucket, and K2+K3 over
+    # the B*S = 8192 record slots of a 1024-bucket batch, empty slots
+    # included
+    k562_all = fastq.read_all(SAMPLE, max_len=4096)
+    for Lb in FUSED_BUCKETS:
+        codes_b, lens_b = bucket_batch(k562_all, Lb)
+        _, _, ch_b = fused_chain(dev, index, codes_b, lens_b)
+        rows.append((f"chain_fused_L{Lb}", check_chain_rows(
+            ch_b["t"], ch_b["q"], ch_b["seg"], ch_b["valid"], 0)))
+    w_s, wl_s = fused_slot_windows(dev, spec, index,
+                                   *bucket_batch(k562_all, 1024))
+    rows.append(("ed_fused_slots_R8192", check_ed_mode(dev, spec, w_s,
+                                                       wl_s)))
     # K4 as the sharded runs of phase 5 launch it: on one whitelist
     # shard's cores at its r_valid (k562: 74 candidate rows against the
     # last of 4 shards of the 737K list, 184,320 cores, all real)
@@ -1040,7 +1246,9 @@ def main() -> int:
         print(f"chip_smoke: kernels disagree with their plain versions: "
               f"{failed}", file=sys.stderr)
         return 1
+    phase_done("2_kernels")
     if opts.kernels:
+        emit({"phase": "phase_seconds", "card": card, **phase_s})
         print(card, flush=True)
         return 0
 
@@ -1074,12 +1282,25 @@ def main() -> int:
         ]
         outs = {run[0]: tmp() for run in runs}
         for name, mode, infile, panel, genome, wl, golden, expect in runs:
+            # the default (fused) path to the golden, then its unfused twin,
+            # every artifact of the two held equal
             by_run[name], why = run_mode(name, mode, infile, panel, genome,
                                          wl, outs[name], card, golden,
                                          expect)
+            twin = tmp()
+            if not why:
+                by_run[name + "_unfused"], why = run_mode(
+                    name + "_unfused", mode, infile, panel, genome, wl, twin,
+                    card, None, expect, fast=False)
+            why = why or twin_check(
+                name, outs[name], twin, card,
+                ("chain", "ed") if mode != "RTX" else ("chain",))
             if why:
                 print(f"chip_smoke: {why}", file=sys.stderr)
                 return 1
+            if name == "k562":
+                phase_done("3_main")
+        phase_done("4_modes")
 
         # phase 5: the sharded runs, held to the unsharded outdirs
         sharded_runs = [
@@ -1123,6 +1344,40 @@ def main() -> int:
 
         emit({"phase": "tier_calls", "card": card,
               "aten_calls_by_rows": tier_call_counts(dev, *k562_shards)})
+        phase_done("5_sharded")
+
+        # the bench.py _cli_bench shape: K562 tiled to 20,000 reads, the
+        # RUNX1 panel, the full 737K list, no genome, batch 2048; the
+        # fused and the unfused path in turns (fused, unfused, unfused,
+        # fused), each pair's artifacts held equal
+        tiled = os.path.join(tmp(), "k562_x5.fastq.gz")
+        n_bench = tile_fastq(SAMPLE, 20_000, tiled)
+        bench = []
+        for k, fast in enumerate((None, False, False, None)):
+            nm = f"cli_bench_{'fused' if fast is None else 'unfused'}_{k}"
+            out = tmp()
+            by_run[nm], why = run_mode(nm, "5p10XGEX", tiled, PANEL,
+                                       "/nonexistent", WHITELIST, out, card,
+                                       None, (), fast=fast)
+            bench.append((nm, out))
+            if why:
+                print(f"chip_smoke: {why}", file=sys.stderr)
+                return 1
+        for (a, oa), (b, ob) in ((bench[0], bench[1]), (bench[3], bench[2])):
+            RUN_LINES[a + "_unfused"] = RUN_LINES[b]
+            why = twin_check(a, oa, ob, card, ("chain", "ed"))
+            if why:
+                print(f"chip_smoke: {why}", file=sys.stderr)
+                return 1
+        emit({"phase": "cli_bench", "card": card, "reads": n_bench,
+              "batch_size": 2048, "runs": [
+                  {k: RUN_LINES[nm][k] for k in (
+                      "run", "path", "wall_s", "reads_per_s",
+                      "steady_reads_per_s", "deferred_reads", "phase_s")}
+                  for nm, _ in bench]})
+        emit({"phase": "cli_bench_device_time", "card": card,
+              **device_time(tiled, tmp())})
+        phase_done("cli_bench")
 
         kernels.reset_launches()
         for name, mode in (("tcr3", "5p10XTCR"),
@@ -1140,6 +1395,8 @@ def main() -> int:
         print("chip_smoke: the rescan never launched sw_full",
               file=sys.stderr)
         return 1
+    phase_done("6_rescan")
+    emit({"phase": "phase_seconds", "card": card, **phase_s})
 
     summary = []
     for name, (src, replaces) in KERNELS.items():

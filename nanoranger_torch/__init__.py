@@ -12,7 +12,8 @@ Layout mirrors the JAX package:
   align       — minimizer index + seed-chain aligner
   ops         — the kernels' wrappers with their plain versions, and the
                 kernel-free DP ops
-  stages      — decon, barcode matching, dedup/counting, clone joins
+  stages      — decon, the fused per-batch step, barcode matching,
+                dedup/counting, clone joins
   vdj         — native clonotyper (V alignment on the device, CDR3 calls,
                 clone assembly and exports)
   runtime     — host C++ banded aligner (built by g++ at first use)

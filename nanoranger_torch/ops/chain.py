@@ -50,7 +50,11 @@ def chain_dp_plain(t, q, seg, valid, k_span: int, max_gap: int,
     sub = torch.arange(G, dtype=torch.int32, device=dev)[None, :]
     negf = torch.tensor(NEGF, dtype=f32, device=dev)
     gap_coef = 0.01 * k_span
-    for i in range(A):
+    # past the last column valid in any row every slot keeps its initial
+    # value (f NEGF, parent and root -1): the walk stops there
+    live = torch.nonzero(valid.any(dim=0))
+    n_cols = int(live[-1, 0]) + 1 if len(live) else 0
+    for i in range(n_cols):
         wt, wq = tf[:, i:i + G], qf[:, i:i + G]
         ws, wf = sg[:, i:i + G], f[:, i:i + G]
         ti, qi = tf[:, i + G:i + G + 1], qf[:, i + G:i + G + 1]

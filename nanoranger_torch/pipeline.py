@@ -1,10 +1,12 @@
 """Pipeline CLI of the PyTorch/CUDA port: all seven modes, streamed.
 
-Counterpart of the JAX package's pipeline.py (its unfused streamed path),
-flag-compatible with it (and with the reference pipeline.py) plus
---device. Every mode runs fastq -> minimizer sketch -> anchor lookup and
-sort -> chain DP -> record extraction -> end extension -> adapter scan
-(whole flank or sliding sub-windows) -> subread and BC-UMI slices; the
+Counterpart of the JAX package's pipeline.py, flag-compatible with it
+(and with the reference pipeline.py) plus --device. Every mode runs fastq
+-> minimizer sketch -> anchor lookup and sort -> chain DP -> record
+extraction -> end extension -> adapter scan (whole flank or sliding
+sub-windows) -> subread and BC-UMI slices, by default fused into one step
+a length-bucketed batch (stages/cli_step.py; NANORANGER_NO_FAST=1 or
+fast=False runs the unfused path, batch by batch); the
 barcoded modes go on to the staged whitelist match (exact tiers where the
 whitelist has them, one-vs-all DP, banded UMI rescore) and their
 mode-specific tables; the clone modes run the native clonotyper over the
@@ -48,6 +50,7 @@ import argparse
 import gzip
 import hashlib
 import heapq
+import itertools
 import json
 import os
 import pickle
@@ -66,14 +69,16 @@ from .align.index import PanelIndex
 from .io import fastq, whitelist
 from .io.bam import BAMWriter
 from .io.candidate_store import CandidateStore
-from .io.encode import COMPLEMENT, decode, encode_batch
+from .io.encode import COMPLEMENT, PAD, decode, encode_batch
 from .io.fasta import FastaWriter, iter_fasta
 from .ops.extend import extend_records_host
 from .parallel.sharded import ShardedMatcher, mesh_devices
 from .runtime.native_lib import banded_align_batch
 from .stages import clones as clone_stage
 from .stages import counting
-from .stages.barcode import ACCEPT, BAD_UMI, LOW_AS, BarcodeMatcher
+from .stages.barcode import (ACCEPT, BAD_UMI, DP_PENDING, LOW_AS,
+                             BarcodeMatcher)
+from .stages.cli_step import assemble_batch, build_cli_step
 from .stages.decon import run_decon
 
 DATA_DIR = os.environ.get(
@@ -93,6 +98,19 @@ MODE_DEFAULTS = {
 }
 
 MATCH_LQ = 96      # candidate width of the barcode match
+
+
+def _matcher_in_step(dev: torch.device) -> bool:
+    """Whether the fused step runs the exact-class whitelist pass: on CUDA.
+    On the CPU the matcher stays out of the step, as in the JAX package, and
+    match_barcodes matches every candidate after the stream."""
+    return dev.type == "cuda"
+
+
+def _inflight() -> int:
+    """Fused-path queue depth: batches dispatched beyond the one being
+    drained (see dispatch() in DeconRun._run_fast)."""
+    return int(os.environ.get("NANORANGER_INFLIGHT", "3"))
 
 
 def log(msg: str):
@@ -143,10 +161,18 @@ class Telemetry:
 class DeconRun:
     """Streamed align+decon over an input fastq, accumulating BC-UMI
     candidates and the per-mode statistics and writing the subread/BCUMI
-    artifacts, batch by batch in input order (the JAX package's unfused
-    path).
+    artifacts in input order.
 
-    data_shards > 1 streams the batches over the data cells of a mesh:
+    The default with data_shards <= 1 is the FUSED path
+    (stages/cli_step.py, `_run_fast`): one call per length-bucketed batch
+    covering seed -> chain DP -> record extraction -> extension -> flank
+    scan -> BC-UMI slice -> the exact-class whitelist pass, whose artifacts
+    are byte-identical to the unfused path's (reads with more kept chains
+    than the step's slots are rerun through it). NANORANGER_NO_FAST=1 or
+    fast=False takes the unfused path: batch by batch, records on the host
+    between the device passes.
+
+    data_shards > 1 runs the unfused path over the data cells of a mesh:
     batch i chains on cell i % data_shards (its flank scan runs where its
     codes are) while earlier batches are assembled, up to data_shards in
     flight, drained strictly in input order, so the artifacts are
@@ -158,8 +184,11 @@ class DeconRun:
     complete)."""
 
     def __init__(self, spec, infile, outdir, sample, trns_ref, device,
-                 batch_size=2048, max_len=4096, force=False, data_shards=1):
+                 batch_size=2048, max_len=4096, force=False, data_shards=1,
+                 matcher=None, fast=None):
         self.spec = spec
+        self.prematch = None
+        self.n_deferred = 0
         t0 = time.time()
         sub_kind = "VDJ" if spec.name in (
             "3pXCR_slideseq", "3p10XTCR", "3p10XTCR_nuc") else "deconcat"
@@ -194,6 +223,13 @@ class DeconRun:
             return
 
         self.index = PanelIndex.from_fasta(trns_ref)
+        if fast is None:
+            fast = (data_shards <= 1 and
+                    os.environ.get("NANORANGER_NO_FAST", "") != "1")
+        if fast:
+            self._run_fast(spec, infile, sample, torch.device(device),
+                           batch_size, max_len, matcher, t0)
+            return
         # batch i chains on data cell i % data_shards, the cells laid over
         # the devices round-robin
         aligner = PanelAligner(
@@ -245,6 +281,326 @@ class DeconRun:
         log(f"align+decon: {n_reads} reads → {n_sub} subreads, "
             f"{len(self.cands)} BC-UMI candidates "
             f"({time.time() - t0:.1f}s)")
+
+    def _run_fast(self, spec, infile, sample, dev, batch_size, max_len,
+                  matcher, t0):
+        """Fused path: one step call per batch (stages/cli_step.py) on
+        `dev`; the host assembles the artifacts from the downloaded slot
+        arrays.
+
+        Reads dispatch in length buckets Lb in {1024, 2048, max_len}, each
+        batch up to batch_size reads of width Lb: ONT reads are mostly
+        short, and the chain's anchor slots grow with the width. Each read
+        carries its input ordinal and an order-restoring writer emits the
+        artifacts strictly in input order, so bucketing changes nothing in
+        the artifact byte streams. A batch goes to the step with its filled
+        rows only: eager kernels take any row count, where the JAX step
+        pads every batch to one compiled shape.
+
+        Up to 1 + NANORANGER_INFLIGHT (default 3) batches are in flight:
+        the card computes ahead while the host downloads and assembles.
+        Reads the step defers (more kept chains than its slots, or an
+        anchor overflow) are rerun through the unfused path in windows of
+        at most FLUSH_BATCHES batches and DEFER_CAP reads, padded to
+        max_len, and interleaved back in read order.
+
+        On the CPU the matcher stays out of the step, as in the JAX
+        package: match_barcodes then matches every candidate. On CUDA the
+        step runs the exact-class pass and self.prematch carries its
+        verdicts; rows it leaves DP_PENDING, and the candidates of deferred
+        reads, are matched after the stream.
+
+        The JAX package loads its compiled step per bucket ahead of time
+        on a thread (NANORANGER_AOT), and on an accelerator runs the
+        unfused fallback once on the first batch so that the fallback's
+        compiles land before the steady-state marker. The port has neither:
+        the kernels build at first use (kernels.py), eager torch compiles
+        nothing, and the fallback runs the step's own kernels and torch
+        ops; its one-time cost is its aligner's index tables, built at the
+        first window with a deferred read. The marker (steady_reads_per_s)
+        re-arms whenever a bucket dispatches for the first time."""
+        cli_matcher = matcher if _matcher_in_step(dev) else None
+        step, tables = build_cli_step(spec, self.index, matcher=cli_matcher,
+                                      device=dev)
+        self._fallback_aligner = None
+        self._dev = dev
+        BUCKETS = sorted({max(256, min(1024, max_len)),
+                          max(256, min(2048, max_len)), max(256, max_len)})
+        BUCKETS_ARR = np.asarray(BUCKETS)
+        do_match = cli_matcher is not None and spec.barcode is not None
+        umi_len = spec.barcode.umi_len if do_match else 0
+        # per-phase wall: read = fastq stream + encode, step = the step
+        # calls (the host issues the card's work; eager torch waits only
+        # at the extension's re-round test) and the wait at download,
+        # assemble = host artifact assembly, slow = unfused reruns of
+        # deferred reads
+        ph = self.phase_s = {"read": 0.0, "step": 0.0, "assemble": 0.0,
+                             "slow": 0.0}
+        mbc, mscore, mstatus, mumi = [], [], [], []
+        n_reads = n_sub = 0
+        fsub = fastq.FastqWriter(self.sub_path)
+        fbc = FastaWriter(self.bcumi_path)
+        pending: deque = deque()
+        # batches whose reads all fit the slots are written at once;
+        # batches with deferred reads buffer until one windowed unfused
+        # run covers them (bounded by FLUSH_BATCHES / DEFER_CAP)
+        FLUSH_BATCHES, DEFER_CAP = 16, 448
+        buffer: list = []
+        buf_defers = 0
+
+        # order-restoring emission: chunks[seq] holds one read's assembled
+        # artifacts until the write cursor reaches it
+        chunks: dict = {}
+        cursor = 0
+
+        def advance():
+            nonlocal cursor, n_sub
+            while cursor in chunks:
+                asm, lo, hi = chunks.pop(cursor)
+                for j in range(lo[0], hi[0]):
+                    fsub.write(asm.sub_names[j], asm.sub_seqs[j],
+                               asm.sub_quals[j])
+                for j in range(lo[1], hi[1]):
+                    fbc.write(asm.bcumi_names[j], asm.bcumi_seqs[j])
+                    self.cands.append(asm.bcumi_names[j], asm.bcumi_seqs[j])
+                    if do_match:
+                        mbc.append(asm.match_bc[j])
+                        mscore.append(asm.match_score[j])
+                        mstatus.append(asm.match_status[j])
+                        mumi.append(asm.match_umi[j])
+                self.eds_rows.extend(asm.eds_rows[lo[2]:hi[2]])
+                self.polyA.extend(asm.polyA[lo[3]:hi[3]])
+                for key in asm.raw_keys[lo[4]:hi[4]]:
+                    self.raw_counts[key] = self.raw_counts.get(key, 0) + 1
+                n_sub += hi[0] - lo[0]
+                cursor += 1
+
+        def emit(asm, seqs):
+            self.n_deferred += asm.n_deferred_reads
+            prev = (0, 0, 0, 0, 0)
+            for k, b in enumerate(asm.read_bounds):
+                s = int(seqs[k])
+                if s >= 0:
+                    chunks[s] = (asm, prev, b)
+                prev = b
+            advance()
+
+        def flush():
+            nonlocal buf_defers
+            if not buffer:
+                return
+            rows = []                       # (buffer slot, local read idx)
+            for bi, (batch, _seqs, _n, out) in enumerate(buffer):
+                for i in np.where(out["defer"])[0]:
+                    rows.append((bi, int(i)))
+            groups_all: dict = {}
+            if rows:
+                n = len(rows)
+                # max_len width: deferred rows come from every bucket
+                cr = np.full((n, max_len), PAD, np.int8)
+                lr = np.zeros(n, np.int32)
+                nr, qr = [], []
+                for k, (bi, i) in enumerate(rows):
+                    b = buffer[bi][0]
+                    w = b.codes.shape[1]
+                    cr[k, :w] = b.codes[i]
+                    lr[k] = b.lengths[i]
+                    nr.append(b.names[i])
+                    qr.append(b.quals[i])
+                tslow = time.time()
+                g: dict = {}
+                for base in range(0, n, DEFER_CAP):
+                    e = min(base + DEFER_CAP, n)
+                    gi = self._slow_groups(spec, sample, cr[base:e],
+                                           lr[base:e], nr[base:e],
+                                           qr[base:e])
+                    for k, v in gi.items():
+                        g[base + k] = v
+                ph["slow"] += time.time() - tslow
+                for k, (bi, i) in enumerate(rows):
+                    groups_all[(bi, i)] = g.get(k, {})
+            tasm = time.time()
+            for bi, (batch, seqs, _n, out) in enumerate(buffer):
+                asm = assemble_batch(
+                    spec, out, batch.codes, batch.lengths, batch.names,
+                    batch.quals, self.index.names, sample,
+                    slow_fallback=lambda didx, bi=bi: {
+                        int(i): groups_all.get((bi, int(i)), {})
+                        for i in didx})
+                emit(asm, seqs)
+            ph["assemble"] += time.time() - tasm
+            buffer.clear()
+            buf_defers = 0
+
+        self._t_steady0 = None
+        self._reads_at_steady0 = 0
+        self._steady_rearm = False
+
+        def drain():
+            nonlocal n_reads, buf_defers
+            batch, seqs, n_real, out_dev = pending.popleft()
+            tget = time.time()
+            out = {k: v.cpu().numpy() for k, v in out_dev.items()}
+            ph["step"] += time.time() - tget
+            n_reads += n_real
+            nd = int(out["defer"].sum())
+            buffer.append((batch, seqs, n_real, out))
+            buf_defers += nd
+            if buf_defers == 0 or len(buffer) >= FLUSH_BATCHES or \
+                    buf_defers >= DEFER_CAP:
+                flush()
+            if self._t_steady0 is None or self._steady_rearm:
+                # (re)arm the steady marker: the one-time costs of every
+                # bucket dispatched so far have now been paid
+                self._t_steady0 = time.time()
+                self._reads_at_steady0 = n_reads
+                self._steady_rearm = False
+
+        def _new_acc(Lb):
+            return {"codes": np.full((batch_size, Lb), PAD, np.int8),
+                    "lengths": np.zeros(batch_size, np.int32),
+                    "names": [""] * batch_size,
+                    "quals": [b""] * batch_size,
+                    "seq": np.full(batch_size, -1, np.int64), "n": 0}
+
+        acc = {Lb: _new_acc(Lb) for Lb in BUCKETS}
+        buckets_seen: set = set()
+
+        def dispatch(Lb):
+            a = acc[Lb]
+            n = a["n"]
+            if n == 0:
+                return
+            if Lb not in buckets_seen:
+                buckets_seen.add(Lb)
+                self._steady_rearm = True   # a new bucket's first batch
+            tstep = time.time()
+            out_dev = step(a["codes"][:n], a["lengths"][:n], tables)
+            ph["step"] += time.time() - tstep
+            pending.append((fastq.ReadBatch(a["codes"][:n], a["lengths"][:n],
+                                            a["names"][:n], a["quals"][:n]),
+                            a["seq"][:n], n, out_dev))
+            acc[Lb] = _new_acc(Lb)
+            if len(pending) > _inflight():
+                drain()
+
+        it = fastq.iter_batches(infile, batch_size, max_len=max_len)
+        in_batches = next_seq = 0
+        while True:
+            tread = time.time()
+            batch = next(it, None)
+            ph["read"] += time.time() - tread
+            if batch is None:
+                break
+            w = batch.codes.shape[1]
+            bl = np.minimum(np.asarray(batch.lengths), max_len)
+            # vectorized bucket routing: one sliced copy per (bucket,
+            # contiguous run)
+            bidx = np.searchsorted(BUCKETS_ARR, bl)
+            for b, Lb in enumerate(BUCKETS):
+                rows = np.nonzero(bidx == b)[0]
+                r0 = 0
+                while r0 < len(rows):
+                    a = acc[Lb]
+                    k = a["n"]
+                    take = min(batch_size - k, len(rows) - r0)
+                    sel = rows[r0:r0 + take]
+                    w2 = min(w, Lb)
+                    a["codes"][k:k + take, :w2] = batch.codes[sel, :w2]
+                    a["lengths"][k:k + take] = bl[sel]
+                    for j, i in enumerate(sel):
+                        a["names"][k + j] = batch.names[i]
+                        a["quals"][k + j] = batch.quals[i]
+                    a["seq"][k:k + take] = next_seq + sel
+                    a["n"] = k + take
+                    r0 += take
+                    if a["n"] == batch_size:
+                        dispatch(Lb)
+            next_seq += len(batch)
+            in_batches += 1
+            if in_batches % FLUSH_BATCHES == 0:
+                # anti-starvation: a rare bucket would otherwise hold the
+                # write cursor (and the reorder buffer) until it fills
+                for Lb in BUCKETS:
+                    dispatch(Lb)
+        for Lb in BUCKETS:
+            dispatch(Lb)
+        while pending:
+            drain()
+        flush()
+        advance()
+        if chunks:       # every dispatched read must have been emitted
+            raise RuntimeError(
+                f"order-restoring writer stalled at read {cursor} with "
+                f"{len(chunks)} assembled reads pending")
+        fsub.close()
+        fbc.close()
+        if do_match:
+            n = len(mbc)
+            umi = np.full((n, umi_len), PAD, np.int8)
+            pend = np.zeros(n, bool)
+            for i, u in enumerate(mumi):
+                if u is None:
+                    pend[i] = True              # deferred read: match later
+                else:
+                    umi[i] = u
+            status_arr = np.asarray(mstatus, np.int32)
+            # rows the step's exact-class pass left to the full match
+            pend |= status_arr == DP_PENDING
+            self.prematch = {
+                "bc_idx": np.asarray(mbc, np.int32),
+                "score": np.asarray(mscore, np.int32),
+                "status": status_arr,
+                "umi": umi, "pending": pend}
+        self.n_reads = n_reads
+        self.n_sub = n_sub
+        self.steady_reads_per_s = None
+        if self._t_steady0 and n_reads > self._reads_at_steady0:
+            dt = time.time() - self._t_steady0
+            if dt > 0:
+                self.steady_reads_per_s = round(
+                    (n_reads - self._reads_at_steady0) / dt, 1)
+        log(f"align+decon (fused): {n_reads} reads → {n_sub} subreads, "
+            f"{len(self.cands)} BC-UMI candidates"
+            + (f", {self.n_deferred} reads via the unfused path"
+               if self.n_deferred else "")
+            + f" ({time.time() - t0:.1f}s)")
+
+    def _slow_groups(self, spec, sample, codes, lengths, names, quals):
+        """Unfused recompute of deferred reads (more kept chains than the
+        fused step's slots), regrouped per input row for the in-order
+        interleave of assemble_batch."""
+        if self._fallback_aligner is None:
+            self._fallback_aligner = PanelAligner(self.index, self._dev)
+        sl = np.asarray(lengths, np.int32)
+        ch = self._fallback_aligner._chain(codes, sl)
+        rec = extract_records(ch, self.index)
+        extend_records_host(rec, self.index, codes, sl, self._dev)
+        out = run_decon(spec, codes, sl, list(names), list(quals), rec,
+                        self.index.names, sample, device=self._dev,
+                        dev_codes=ch["dev_codes"])
+        groups: dict = {}
+
+        def grp(gi):
+            return groups.setdefault(int(gi), {"sub": [], "bc": [],
+                                               "eds": [], "polyA": [],
+                                               "raw": []})
+
+        rd = rec.read_idx
+        for k, ri in enumerate(out.sub_rec):
+            grp(rd[ri])["sub"].append(
+                (out.sub_names[k], out.sub_seqs[k], out.sub_quals[k]))
+        for k, ri in enumerate(out.bcumi_rec):
+            g = grp(rd[ri])
+            g["bc"].append((out.bcumi_names[k], out.bcumi_seqs[k]))
+            if spec.bcumi_rule == "rev_slideseq":
+                g["polyA"].append(out.polyA[k])
+        if out.eds_rec is not None:
+            for k, ri in enumerate(out.eds_rec):
+                grp(rd[ri])["eds"].append(out.eds_rows[k])
+        for (ri, key) in (out.raw_rows or []):
+            grp(rd[ri])["raw"].append(key)
+        return groups
 
     def eds_artifacts(self, outdir, sample) -> list:
         """Mode-specific stats artifacts write_eds produces (resume set)."""
@@ -322,7 +678,7 @@ def _write_score_hist(res, outdir, sample):
 
 def match_barcodes(spec, bcs_array, cands, outdir, sample, device,
                    batch=4096, force=False, matcher=None, wl_shards=1,
-                   data_shards=1):
+                   data_shards=1, prematched=None):
     """Whitelist match of accumulated candidates -> per-read assignment df
     + score histogram artifacts. The full assignment table persists as
     {sample}_assignments.csv.gz and is reloaded on resume when the run
@@ -332,6 +688,11 @@ def match_barcodes(spec, bcs_array, cands, outdir, sample, device,
 
     wl_shards/data_shards > 1 match over a (data x wl) mesh
     (parallel/sharded.ShardedMatcher) unless `matcher` is given.
+
+    prematched: the per-candidate verdicts of the fused step's exact-class
+    pass (DeconRun.prematch); only the rows with pending=True (DP_PENDING
+    rows and the candidates of deferred reads) are matched here, the others
+    are taken as they are. The artifacts are the same either way.
 
     cands: a CandidateStore (consumed by sequential streaming)."""
     if not isinstance(cands, CandidateStore):
@@ -370,14 +731,27 @@ def match_barcodes(spec, bcs_array, cands, outdir, sample, device,
         n_data, n_wl = m.mesh.shape
         log(f"whitelist match on a {n_data}x{n_wl} (data x wl) device mesh "
             f"over {len(m.mesh.devices)} device(s)")
-    all_res = {k: [] for k in ("bc_idx", "score", "status", "umi")}
-    for _, bs in cands.iter_batches(batch):
-        q, qlen = encode_batch(bs, max_len=MATCH_LQ)
-        r = m.match(q, qlen)
-        for k in all_res:
-            all_res[k].append(r[k])
-    res = {k: np.concatenate(v) if v else np.zeros(0, np.int32)
-           for k, v in all_res.items()}
+    if prematched is not None and isinstance(m, BarcodeMatcher):
+        res = {k: np.asarray(prematched[k]).copy()
+               for k in ("bc_idx", "score", "status", "umi")}
+        pend = np.where(prematched["pending"])[0]
+        row_iter = cands.rows(pend)      # one sequential pass, ascending
+        for s in range(0, len(pend), batch):
+            rows = pend[s:s + batch]
+            chunk = [sq for _, sq in itertools.islice(row_iter, len(rows))]
+            q, qlen = encode_batch(chunk, max_len=MATCH_LQ)
+            r = m.match(q, qlen)
+            for k in res:
+                res[k][rows] = r[k]
+    else:
+        all_res = {k: [] for k in ("bc_idx", "score", "status", "umi")}
+        for _, bs in cands.iter_batches(batch):
+            q, qlen = encode_batch(bs, max_len=MATCH_LQ)
+            r = m.match(q, qlen)
+            for k in all_res:
+                all_res[k].append(r[k])
+        res = {k: np.concatenate(v) if v else np.zeros(0, np.int32)
+               for k, v in all_res.items()}
     status = res["status"]
     acc = status == ACCEPT
     _write_score_hist(res, outdir, sample)
@@ -628,7 +1002,12 @@ def _ensure_clonotypes(mode, sub_path, outdir, sample, trns_ref, xpecies,
 
 def run_pipeline(mode, infile, outdir, sample, trns_ref=None, genome_ref=None,
                  barcodes=None, xpecies=None, batch_size=2048, force=False,
-                 wl_shards=1, data_shards=1, scrub=False, device="cuda"):
+                 wl_shards=1, data_shards=1, scrub=False, device="cuda",
+                 fast=None):
+    """Run `mode` from the fastq to its artifacts on `device`. fast=None
+    takes the fused per-batch step when data_shards <= 1 and
+    NANORANGER_NO_FAST is not 1 (DeconRun); fast=False forces the unfused
+    path."""
     dev = resolve_device(device)
     spec = chemistry.get(mode)
     dflt = MODE_DEFAULTS[mode]
@@ -660,13 +1039,22 @@ def run_pipeline(mode, infile, outdir, sample, trns_ref=None, genome_ref=None,
     # the stage keeps the JAX package's bounds (whitelist tables included);
     # their share rides along as whitelist_s
     whitelist_s = round(time.time() - ts, 3)
+    # the fused step takes the unsharded matcher on its device (its
+    # exact-class pass); a mesh's matcher runs only after the stream
     run = DeconRun(spec, infile, outdir, sample, trns_ref, dev, batch_size,
-                   force=force, data_shards=data_shards)
+                   force=force, data_shards=data_shards,
+                   matcher=matcher if isinstance(matcher, BarcodeMatcher)
+                   else None, fast=fast)
     run.write_eds(outdir, sample)
+    phase_s = getattr(run, "phase_s", None)
     tele.stage("align_decon", time.time() - ts, run.n_reads,
                subreads=run.n_sub, candidates=len(run.cands),
                resumed=run.resumed, whitelist_s=whitelist_s,
-               shard_tables_s=shard_tables_s)
+               shard_tables_s=shard_tables_s,
+               deferred_reads=run.n_deferred or None,
+               steady_reads_per_s=getattr(run, "steady_reads_per_s", None),
+               phase_s={k: round(v, 3) for k, v in phase_s.items()}
+               if phase_s else None)
 
     if mode == "RTX":
         ts = time.time()
@@ -705,7 +1093,9 @@ def run_pipeline(mode, infile, outdir, sample, trns_ref=None, genome_ref=None,
     ts = time.time()
     df, res = match_barcodes(spec, bcs, run.cands, outdir, sample, dev,
                              force=force, matcher=matcher,
-                             wl_shards=wl_shards, data_shards=data_shards)
+                             wl_shards=wl_shards, data_shards=data_shards,
+                             prematched=None if run.resumed else
+                             run.prematch)
     tele.stage("barcode_match", time.time() - ts, len(run.cands),
                accepted=int((df.status == ACCEPT).sum()),
                whitelist=int(len(bcs)))

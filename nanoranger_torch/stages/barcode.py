@@ -39,6 +39,8 @@ Status codes per candidate (what the reference observes from STAR's SAM):
   4 BAD_UMI   — accepted barcode but UMI column unaligned or truncated
   6 RC_BEST   — reverse-strand alignment strictly outscores every forward
                 one (flag-16 row, rejected by the reference's flag==0)
+  7 DP_PENDING — the fused step's exact-class pass (match_device_with)
+                left the row to the match after the stream
 """
 
 from __future__ import annotations
@@ -54,6 +56,9 @@ from ..ops.whitelist_verify import NEG, verify_all
 
 ACCEPT, LOW_AS, MULTIMAP, NO_CAND, BAD_UMI = 0, 1, 2, 3, 4
 RC_BEST = 6
+# the fused step's verdict for rows its exact-class pass leaves to the
+# post-stream match
+DP_PENDING = 7
 
 # tiers resolved by hash enumeration: m, m-1, m-2
 N_TIERS = 3
@@ -475,11 +480,26 @@ class BarcodeMatcher:
         host, self.ref_len = build_tables(self.barcodes, spec)
         self.tables = tables_to(host, self.device)
 
+    def device_tables(self) -> dict:
+        """The whitelist tables on the matcher's device, for callers that
+        pass them to `match_device_with` (the fused step's tables). The
+        sorted key tables only: tier lookups binary-search them with
+        torch.searchsorted, where the JAX package adds cuckoo hash tables
+        on accelerators that give the same answers."""
+        return self.tables
+
     def _tiers(self, q, qlen, classes: str = "full"):
-        """(fwd_tiers, rc_any, tier_hit); with classes="exact" only the
-        tier-m bucket is meaningful and tier_hit is the fwd tier-m any."""
-        t = self.tables
+        return self._tiers_with(q, qlen, self.tables, classes)
+
+    def _tiers_with(self, q, qlen, t, classes: str = "full"):
+        """(fwd_tiers, rc_any, tier_hit) from the tables `t`, or (None,
+        None, all-False) when the whitelist has no tier tables; with
+        classes="exact" only the tier-m bucket is meaningful and tier_hit
+        is the fwd tier-m any."""
         s = self.spec
+        if "ex_keys" not in t:
+            return None, None, torch.zeros(q.shape[0], dtype=torch.bool,
+                                           device=q.device)
         fwd = tier_hits(q, qlen, t["ex_keys"], t["ex_idx"], s.bc_len,
                         s.pad_left, s.pad_right, classes=classes)
         rc = tier_hits(q, qlen, t["rc_ex_keys"], None, s.bc_len,
@@ -574,6 +594,56 @@ class BarcodeMatcher:
         return {"bc_idx": bc.cpu().numpy(), "score": score.cpu().numpy(),
                 "status": status.cpu().numpy(), "umi": umi.cpu().numpy(),
                 "qpos": qpos.cpu().numpy()}
+
+    def match_device_with(self, q, qlen, t, dp: bool = False):
+        """The match of (B, Lq) int8 candidate tensors on the device of the
+        tables `t` (device_tables()), with no host synchronisation:
+        returns tensors (bc, score, status, umi, qpos).
+
+        dp=False is the fused step's pass: only the exact (cost-0) class
+        is enumerated, and any candidate without a forward tier-m hit
+        comes back DP_PENDING, for the pipeline to match after the stream
+        (pipeline.match_barcodes with prematched=). Verdicts of forward
+        tier-m rows are final and equal the full match's: ties at the best
+        score decide them within the tier-m summaries, so the lower tiers,
+        zeroed here, are never read for them. Without tier tables every
+        non-empty candidate is pending."""
+        if dp:
+            raise NotImplementedError(
+                "match_device_with(dp=True) (the one-vs-all DP and the UMI "
+                "rescore inside the step) comes with the stages/device_step.py"
+                " slice of the port")
+        B = q.shape[0]
+        dev = q.device
+        i32 = torch.int32
+        fwd, rc, fwd16_any = self._tiers_with(q, qlen, t, classes="exact")
+        if fwd is None:
+            pend = qlen > 0
+            tiers = None
+        else:
+            zf = torch.zeros(B, dtype=torch.bool, device=dev)
+            neg1 = torch.full((B,), -1, dtype=torch.int64, device=dev)
+            zsum = (zf, zf, neg1, neg1)
+            tiers = ([fwd[0], zsum, zsum], [rc[0], zf, zf])
+            pend = (qlen > 0) & ~fwd16_any
+        no_dp = (torch.zeros(B, dtype=torch.bool, device=dev),
+                 torch.full((B,), NEG, dtype=i32, device=dev),
+                 torch.full((B,), -1, dtype=i32, device=dev),
+                 torch.zeros(B, dtype=i32, device=dev),
+                 torch.full((B,), NEG, dtype=i32, device=dev),
+                 torch.full((B,), -1, dtype=i32, device=dev),
+                 torch.zeros(B, dtype=torch.bool, device=dev))
+        bc, score, status, umi, qpos = combine_verdicts(
+            q, qlen, self.spec, self.core_len, tiers, no_dp)
+        status = torch.where(pend, DP_PENDING, status).to(i32)
+        return bc, score, status, umi, qpos
+
+    def match_device(self, q, qlen):
+        """The full match inside a device program (the JAX package's
+        dp=True step): not in the port yet."""
+        raise NotImplementedError(
+            "match_device (the full in-step match) comes with the "
+            "stages/device_step.py slice of the port")
 
     def bc_strings(self, bc_idx: np.ndarray) -> np.ndarray:
         out = np.full(bc_idx.shape, "", dtype=object)

@@ -3,7 +3,9 @@
 tagged-BAM writer and reader (io/bam.py) and the downstream readers of the
 BAM (downstream/*) hold the same code as the JAX package's, and so do the
 multi-host tools (tools/split_fastq.py, tools/merge_shards.py) but for
-their import lines and the device the merge's pipeline tail runs on."""
+their import lines and the device the merge's pipeline tail runs on; the
+fused step's host assembly (stages/cli_step.py: BatchAssembly,
+assemble_batch and their tables) is the JAX package's code."""
 
 import ast
 import dataclasses
@@ -23,6 +25,7 @@ from nanoranger_tpu.downstream import isoforms as jax_isoforms
 from nanoranger_tpu.downstream import pileup as jax_pileup
 from nanoranger_tpu.downstream import read_stats as jax_read_stats
 from nanoranger_tpu.io import bam as jax_bam
+from nanoranger_tpu.stages import cli_step as jax_cli_step
 from nanoranger_tpu.stages import counting as jax_counting
 from nanoranger_tpu.tools import merge_shards as jax_merge_shards
 from nanoranger_tpu.tools import split_fastq as jax_split_fastq
@@ -34,7 +37,7 @@ from nanoranger_torch.downstream import (fusion_gene, isoforms, pileup,
                                          read_stats)
 from nanoranger_torch.io import bam, encode, fasta, fastq, whitelist
 from nanoranger_torch.io.candidate_store import CandidateStore
-from nanoranger_torch.stages import counting
+from nanoranger_torch.stages import cli_step, counting
 from nanoranger_torch.tools import merge_shards, split_fastq
 
 torch.set_num_threads(1)
@@ -190,3 +193,30 @@ def _tool_code(module):
     ids=["split_fastq", "merge_shards"])
 def test_tools_copies_hold_the_same_code(port, ref):
     assert _tool_code(port) == _tool_code(ref)
+
+
+def _top_level_code(module, name):
+    """The syntax tree of one top-level class, function or assignment of
+    `module`, without docstrings."""
+    with open(module.__file__) as f:
+        tree = ast.parse(f.read())
+    node = next(n for n in tree.body
+                if getattr(n, "name", None) == name
+                or (isinstance(n, ast.Assign)
+                    and any(getattr(t, "id", None) == name
+                            for t in n.targets)))
+    for sub in ast.walk(node):
+        body = getattr(sub, "body", None)
+        if (isinstance(body, list) and body
+                and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            body.pop(0)
+    return ast.dump(node)
+
+
+@pytest.mark.parametrize("name", ["BatchAssembly", "assemble_batch",
+                                  "_CODE_TO_ASCII", "_RC_TABLE"])
+def test_fused_step_assembly_is_the_jax_code(name):
+    assert _top_level_code(cli_step, name) == \
+        _top_level_code(jax_cli_step, name)

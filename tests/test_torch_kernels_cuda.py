@@ -5,7 +5,9 @@ in both of its gap classes, the adapter scan at the word boundaries of its
 bit vectors, the banded rescore at the pipeline's pair counts, the
 one-vs-all DP at the r_valid of whitelist shard tails; and the sharded
 matcher with every mesh cell on the card against the card's single-device
-matcher. Every test is marked `cuda` and skips without a card. The file imports neither JAX nor the JAX package, so on a
+matcher; the fused per-batch step on the card against the same step on the
+CPU, and K1 and K2+K3 at the step's shapes. Every test is marked `cuda` and
+skips without a card. The file imports neither JAX nor the JAX package, so on a
 machine with a card and no JAX it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
@@ -18,9 +20,10 @@ import pytest
 import torch
 
 from nanoranger_torch import chemistry, kernels
-from nanoranger_torch.chemistry import SLIDESEQ_LINKER
-from nanoranger_torch.io import whitelist
-from nanoranger_torch.io.encode import N, PAD, encode_batch
+from nanoranger_torch.chemistry import SLIDESEQ_LINKER, TRUSEQ
+from nanoranger_torch.io import fasta, fastq, whitelist
+from nanoranger_torch.io.encode import (N, PAD, decode, encode, encode_batch,
+                                        revcomp_str)
 from nanoranger_torch.ops.chain import chain_dp, chain_dp_plain
 from nanoranger_torch.ops.edit_distance import hw_locate, hw_locate_plain
 from nanoranger_torch.ops.sw import (sw_banded_plain, sw_end2end,
@@ -740,3 +743,222 @@ def test_sharded_match_on_one_card(dev, wl_737k, mode, shape):
     for v, w in zip((bc, score, status, umi, counts),
                     sharded(torch.device("cpu"))):
         np.testing.assert_array_equal(v, w)
+
+
+# ---------------------------------------------------------------------------
+# the fused per-batch step (stages/cli_step.py): cases shared with
+# tests/test_torch_cli_step.py, which holds them against the JAX step
+
+B, L, S = 32, 1024, 4
+TSO = "TTTCTTATATG"
+SAMPLE = os.path.join(DATA, "samples",
+                      "K562_Kasumi1_BCRABL1_RUNX1_RUNX1T1.fastq.gz")
+PANEL = os.path.join(DATA, "RUNX1_RUNX1T1_ABL1_BCR.fa")
+
+
+def _rand(rng, n):
+    return "".join(rng.choice(list("ACGT"), n))
+
+
+def _sub1(rng, s):
+    i = int(rng.integers(len(s)))
+    return s[:i] + "ACGT".replace(s[i], "")[int(rng.integers(3))] + s[i + 1:]
+
+
+def _batch(reads):
+    """(codes (B, L) int8, lengths (B,) int32); rows past the reads are
+    empty, as in a bucket's last batch."""
+    assert len(reads) <= B and max(map(len, reads)) <= L
+    codes = np.full((B, L), PAD, np.int8)
+    lens = np.zeros(B, np.int32)
+    for i, r in enumerate(reads):
+        codes[i, :len(r)] = encode(r)
+        lens[i] = len(r)
+    return codes, lens
+
+
+def cli_world(rng):
+    """Panels, whitelists and the B-read batches of the fused step's cases
+    (CLI_CASES), made from `rng`: real K562 reads of the 1024 bucket,
+    synthetic 5' concatemers and 3' reads with whitelisted barcodes (every
+    fourth with one substitution), and RTX reads on a panel holding one
+    transcript eight times."""
+    names, seqs = fasta.read_fasta_encoded(PANEL)
+    tx = [decode(s) for s in seqs]
+    wl10 = whitelist.load(WL_737K)
+    pick = wl10[rng.choice(len(wl10), 300, replace=False)]
+    used = list(pick[:120])
+
+    def bc_of(i):
+        bc = str(used[i % len(used)])
+        return _sub1(rng, bc) if i % 4 == 3 else bc   # no exact hit: pending
+
+    def seg(i, n):
+        t = tx[i % len(tx)]
+        lo = int(rng.integers(0, max(1, len(t) - n)))
+        return t[lo:lo + n]
+
+    # the slice rule on real K562 reads of the 1024 bucket
+    k562 = next(fastq.iter_batches(SAMPLE, 80, max_len=4096))
+    keep = [i for i in range(len(k562.lengths)) if k562.lengths[i] <= L][:B]
+    k562_reads = [decode(k562.codes[i], int(k562.lengths[i])) for i in keep]
+    carried = set()
+    known = set(wl10.tolist())
+    for r in k562_reads:
+        for s in (r[:200], revcomp_str(r)[:200]):
+            carried.update(s[i:i + 16] for i in range(len(s) - 15)
+                           if s[i:i + 16] in known)
+
+    def unit5p(i, tr):
+        return (_rand(rng, 10 + 5 * (i % 3)) + "CGCTCTTCCGATCT" + bc_of(i)
+                + _rand(rng, 10) + TSO + tr)
+
+    # synthetic 5' concatemers: 6 units (more kept chains than S slots),
+    # and two units on two transcripts and strands (two segs; with 24 such
+    # reads the accepted slots exceed the B matched rows: a spill batch)
+    concat = []
+    for i in range(8):
+        concat.append("".join(unit5p(6 * i + k, seg(i + k, 90))
+                              for k in range(6)))
+    for i in range(8, B):
+        concat.append(unit5p(i, seg(i, 330))
+                      + revcomp_str(unit5p(i + 1, seg(i + 1, 330))))
+
+    def reads_3p(mode):
+        out = []
+        for i in range(B - 2):
+            tr = seg(i, 450)
+            if mode == "3pXCR_slideseq":
+                r = (_rand(rng, 120) + tr + "A" * (10 + 35 * (i % 3))
+                     + _rand(rng, 22) + revcomp_str(SLIDESEQ_LINKER)
+                     + _rand(rng, 30))
+            elif mode == "3p10XTCR":
+                r = (_rand(rng, 200) + tr + _rand(rng, 10 * (i % 5))
+                     + "AAAAAA" + _rand(rng, 28) + TRUSEQ + _rand(rng, 25))
+            elif mode == "3p10XTCR_nuc":
+                r = (tr + _rand(rng, 40 + 100 * (i % 5))
+                     + revcomp_str(bc_of(i) + _rand(rng, 19)) + TRUSEQ
+                     + _rand(rng, 25))
+            else:                                          # 3p10XGEX
+                r = (tr + _rand(rng, 4 + 150 * (i % 3))
+                     + revcomp_str(bc_of(i) + _rand(rng, 16)) + TRUSEQ
+                     + _rand(rng, 25))
+            out.append(revcomp_str(r) if i % 3 == 1 else r)
+        return out + [tr, ""]          # one read without adapter, one empty
+
+    # RTX on a panel holding X eight times, Y three times and Z once:
+    # reads of X overflow the bucket's anchor slots and have 8 chains;
+    # reads of Y have three chains of equal score
+    px = [rng.integers(0, 4, 1000).astype(np.int8) for _ in range(3)]
+    o_seqs = [px[0]] * 8 + [px[1]] * 3 + [px[2]]
+    o_names = [f"TRBV{k}-1|x_{k}" for k in range(len(o_seqs))]
+    rtx = []
+    for i in range(B):
+        src = decode(px[i % 3])
+        n = 950 if i % 3 == 0 else 400
+        lo = int(rng.integers(0, 1000 - n))
+        r = src[lo:lo + n] + (_rand(rng, 60) if n < 950 else "")
+        rtx.append(revcomp_str(r) if i % 2 else r)
+
+    return {
+        "panel": (names, seqs), "overflow_panel": (o_names, o_seqs),
+        "wl10": np.asarray(sorted(set(pick.tolist()) | carried)),
+        "wl_slideseq": whitelist.load(WL_SLIDESEQ)[:300],
+        "batches": {"k562": _batch(k562_reads), "concat": _batch(concat),
+                    "rtx": _batch(rtx),
+                    **{m: _batch(reads_3p(m)) for m in (
+                        "3p10XTCR", "3pXCR_slideseq", "3p10XTCR_nuc",
+                        "3p10XGEX")}},
+    }
+
+
+CLI_CASES = [
+    # (id, mode, batch, panel, with a matcher)
+    ("slice-k562", "5p10XGEX", "k562", "panel", True),
+    ("slice-concatemers", "5p10XGEX", "concat", "panel", True),
+    ("rev_slice14", "3p10XTCR", "3p10XTCR", "panel", True),
+    ("rev_slideseq", "3pXCR_slideseq", "3pXCR_slideseq", "panel", True),
+    ("rev_nuc", "3p10XTCR_nuc", "3p10XTCR_nuc", "panel", True),
+    ("rev_3pgex-no-matcher", "3p10XGEX", "3p10XGEX", "panel", False),
+    ("rtx-overflow-ties", "RTX", "rtx", "overflow_panel", False),
+]
+
+
+
+
+@pytest.fixture(scope="module")
+def cli_cases():
+    return cli_world(np.random.default_rng(20261017))
+
+
+@pytest.mark.parametrize("case", CLI_CASES, ids=[c[0] for c in CLI_CASES])
+def test_fused_step_on_the_card_equals_the_cpu(dev, cli_cases, case):
+    """build_cli_step on the card (K1 and K2+K3 launched once each inside
+    the step) gives every output of the step on the CPU bit for bit."""
+    from nanoranger_torch.align.index import PanelIndex
+    from nanoranger_torch.stages.cli_step import build_cli_step
+    _, mode, bkey, panel_key, with_matcher = case
+    names, seqs = cli_cases[panel_key]
+    spec = chemistry.get(mode)
+    codes, lens = cli_cases["batches"][bkey]
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        m = None
+        if with_matcher:
+            m = BarcodeMatcher(
+                cli_cases["wl_slideseq" if spec.barcode.slideseq_linker
+                          else "wl10"], spec.barcode, d)
+        step, tables = build_cli_step(spec, PanelIndex.build(names, seqs),
+                                      matcher=m, device=d)
+        before = dict(kernels.launches)
+        outs[d.type] = {k: v.cpu() for k, v in
+                        step(codes, lens, tables).items()}
+        if d.type == "cuda":
+            assert kernels.launches["chain"] == before["chain"] + 1
+            assert kernels.launches["ed"] == before["ed"] + (
+                spec.scan is not None)
+    assert outs["cuda"].keys() == outs["cpu"].keys()
+    for k, v in outs["cpu"].items():
+        assert torch.equal(outs["cuda"][k], v), k
+
+
+@pytest.fixture(scope="module")
+def k562_reads():
+    return fastq.read_all(SAMPLE, max_len=4096)
+
+
+@pytest.mark.parametrize("Lb", [1024, 2048, 4096])
+def test_chain_kernel_at_the_fused_buckets(dev, k562_reads, Lb):
+    """K1 at the fused step's anchor slots of each length bucket (A = 1024,
+    2048, 4096 from max_minimizers 256, 512, 1024) on K562 reads of that
+    bucket."""
+    import chip_smoke
+    from nanoranger_torch.align.aligner import BANDWIDTH, MAX_GAP
+    from nanoranger_torch.align.index import PanelIndex
+    from nanoranger_torch.align.minimizers import K
+    codes, lens = chip_smoke.bucket_batch(k562_reads, Lb, B=256)
+    _, _, ch = chip_smoke.fused_chain(dev, PanelIndex.from_fasta(PANEL),
+                                      codes, lens)
+    assert ch["t"].shape == (256, Lb) and int(ch["valid"].sum()) > 0
+    args = (ch["t"], ch["q"], ch["seg"], ch["valid"], K, MAX_GAP, BANDWIDTH)
+    _equal(chain_dp(*args), chain_dp_plain(*args))
+
+
+def test_ed_kernel_at_the_fused_slots(dev, k562_reads):
+    """K2+K3 over the B*S = 8192 record slots of a 1024-bucket batch of
+    2048 K562 reads, as the fused step scans them: the slots no chain
+    fills (most of them) scan the flank of an empty span at the read's
+    start."""
+    import chip_smoke
+    from nanoranger_torch.align.index import PanelIndex
+    spec = chemistry.get("5p10XGEX")
+    window, wlen = chip_smoke.fused_slot_windows(
+        dev, spec, PanelIndex.from_fasta(PANEL),
+        *chip_smoke.bucket_batch(k562_reads, 1024))
+    assert window.shape[0] == 8192
+    sc = spec.scan
+    args = (torch.from_numpy(encode(sc.pattern)).to(dev), window, wlen,
+            sc.k, sc.n_wildcard, sc.pick_last)
+    got = hw_locate(*args)
+    _equal(got, hw_locate_plain(*args))
+    assert int((got[0] >= 0).sum()) > 500
