@@ -19,7 +19,9 @@ Phases, each of which must pass or the script exits non-zero:
                and pattern with windows cut from TCR3 and slideseq reads,
                the one-vs-all DP at core 32 against the full slideseq list,
                the banded rescore at band 33, the full-row rescore at the
-               four pad geometries), and the one-vs-all DP at the candidate
+               four pad geometries and on random rows of the 5' width
+               whose optima lie left of, right of and across the UMI
+               column), and the one-vs-all DP at the candidate
                rows of the K562 run's launch (118) and of the slideseq
                run's last (336), and on one whitelist shard at its r_valid
                as phase 5 launches it (74 rows against the last of 4 shards
@@ -617,6 +619,26 @@ def check_verify_sw(dev, barcodes, spec, seqs, launch_rows):
     return verify, at_launch, sw
 
 
+def sw_full_row(args):
+    """K6 against its plain version on (query, qlen, refs, rlen, c): the
+    kernel's result and its phase-2 row."""
+    from nanoranger_torch.ops.sw import sw_end2end, sw_end2end_plain
+    q, ql, refs, rl, c = args
+    P, Lr = refs.shape
+    got = sw_end2end(*args)
+    ref, plain_ms = plain_ms_of(lambda: sw_end2end_plain(*args))
+    ms = cuda_ms(lambda: sw_end2end(*args), 20)
+    mism, err = compare(got, ref)
+    # one DP over each pair's (qlen + 1) rows x rlen live columns, ~8
+    # scalar ops a cell
+    cells = int(((ql + 1) * rl.clamp(0, Lr)).sum())
+    return got, {"shape": [P, int(q.shape[1]), Lr], "c": c,
+                 "valid": int(got[2].sum()), "ms": ms, "plain_ms": plain_ms,
+                 "mismatches": mism, "max_abs_err": err,
+                 "bound": bound(q.numel() + refs.numel() + 8 * P + 9 * P,
+                                cells * 8)}
+
+
 def check_sw_full(dev, barcodes, spec, rng):
     """K6 on 256 candidates, each against the full padded row of the
     barcode it was made from: against its plain version, and against the
@@ -626,7 +648,7 @@ def check_sw_full(dev, barcodes, spec, rng):
 
     from nanoranger_torch.io import whitelist
     from nanoranger_torch.io.encode import encode_batch
-    from nanoranger_torch.ops.sw import sw_end2end, sw_end2end_plain
+    from nanoranger_torch.ops.sw import sw_end2end
     seqs, truth = structured_candidates(rng, barcodes, 256, spec)
     q_np, ql_np = encode_batch(seqs, max_len=96)
     refs_np, ref_len = whitelist.padded_refs(np.asarray(truth), spec)
@@ -635,22 +657,60 @@ def check_sw_full(dev, barcodes, spec, rng):
     ql = torch.from_numpy(ql_np).to(dev)
     refs = torch.from_numpy(np.ascontiguousarray(refs_np)).to(dev)
     rl = torch.full((P,), Lr, dtype=torch.int32, device=dev)
-    c = spec.umi_ref_offset
-    args = (q, ql, refs, rl, c)
-    got = sw_end2end(*args)
-    ref, plain_ms = plain_ms_of(lambda: sw_end2end_plain(*args))
-    ms = cuda_ms(lambda: sw_end2end(*args), 20)
-    mism, err = compare(got, ref)
-    banded = sw_end2end(*args, pad_left=spec.pad_left)
-    mism_banded, _ = compare(got, banded)
-    # both passes over (qlen + 1) rows x Lr columns, ~8 scalar ops a cell
-    cells = int((ql + 1).sum()) * Lr * 2
-    return {"shape": [P, int(q.shape[1]), Lr], "c": c,
-            "valid": int(got[2].sum()), "ms": ms, "plain_ms": plain_ms,
-            "mismatches": mism + mism_banded, "vs_banded": mism_banded,
-            "max_abs_err": err,
-            "bound": bound(q.numel() + refs.numel() + 8 * P + 12 * P,
-                           cells * 8)}
+    args = (q, ql, refs, rl, spec.umi_ref_offset)
+    got, r = sw_full_row(args)
+    mism_banded, _ = compare(got, sw_end2end(*args, pad_left=spec.pad_left))
+    r["mismatches"] += mism_banded
+    r["vs_banded"] = mism_banded
+    return r
+
+
+def split_rows(rng, P, Lq, Lr, c):
+    """P candidates against random rows with no N pads (PAD past each
+    rlen), the inputs that exercise each term of K6's split at column
+    k = min(c + 1, rlen): in turn a query planted wholly left of column c,
+    wholly right of it, across it, and none, with some base changed,
+    inserted or deleted; rlen ragged, at or below c on every seventh pair,
+    qlen 0 and 1 on the first two. Returns numpy (q, qlen, refs, rlen)."""
+    import numpy as np
+
+    from nanoranger_torch.io.encode import PAD
+    q = np.full((P, Lq), PAD, np.int8)
+    qlen = rng.integers(0, Lq + 1, size=P).astype(np.int32)
+    qlen[:2] = (0, min(1, Lq))
+    refs = rng.integers(0, 4, size=(P, Lr)).astype(np.int8)
+    rlen = rng.integers(1, Lr + 1, size=P).astype(np.int32)
+    rlen[::3] = Lr
+    rlen[5::7] = rng.integers(0, c + 1, size=len(rlen[5::7]))
+    for i in range(P):
+        n, lr = int(qlen[i]), int(rlen[i])
+        q[i, :n] = rng.integers(0, 5, n)
+        lo, hi = ((0, min(c, lr)), (c + 2, lr), (c - n // 2, c + n - n // 2),
+                  (0, 0))[i % 4]
+        lo, hi = max(lo, 0), min(hi, lr)
+        m = min(n, hi - lo)
+        if m > 0:
+            at = lo + int(rng.integers(0, hi - lo - m + 1))
+            q[i, :m] = refs[i, at:at + m]
+            if i % 5 == 0 and m > 4:                 # a substitution
+                q[i, m // 2] = (q[i, m // 2] + 1) % 4
+            if i % 6 == 1 and 4 < m < n:             # an insertion
+                q[i, m // 3 + 1:m + 1] = q[i, m // 3:m].copy()
+            if i % 7 == 2 and m > 4:                 # a deletion
+                q[i, m // 3:m - 1] = q[i, m // 3 + 1:m].copy()
+        refs[i, lr:] = PAD
+    return q, qlen, refs, rlen
+
+
+def check_sw_full_split(dev, rng):
+    """K6 on 256 split_rows pairs at the 5' row's width and UMI column."""
+    import torch
+    c = 46
+    q, qlen, refs, rlen = (torch.from_numpy(a).to(dev)
+                           for a in split_rows(rng, 256, 96, 86, c))
+    r = sw_full_row((q, qlen, refs, rlen, c))[1]
+    r["rlen_le_c"] = int((rlen <= c).sum())
+    return r
 
 
 # --------------------------------------------------------------------------
@@ -1394,6 +1454,7 @@ def main() -> int:
         r = check_sw_full(dev, bcs, get_spec(mode).barcode, rng)
         rows.append((f"sw_full_Lr{r['shape'][2]}", r))
         res.setdefault("sw_full", r)            # the 86-wide 5' row
+    rows.append(("sw_full_split_Lr86", check_sw_full_split(dev, rng)))
 
     failed = []
     for name, r in rows:

@@ -37,7 +37,7 @@ NEG = -(1 << 20)
 MAX_FULL_LQ = 127          # csrc/sw_full.cu, sw_banded.cu: Lq + 1 DP rows,
                            # 4 to a lane of one warp
 MAX_BANDED_NB = 64         # csrc/sw_banded.cu: band held in two registers
-MAX_FULL_LR = 128          # csrc/sw_full.cu: reference row staged per warp
+MAX_FULL_LR = 128          # csrc/sw_full.cu: reference row staged per pair
 
 
 def _sub(qsh, rj):
@@ -205,11 +205,11 @@ def sw_end2end_full(query, qlen, refs, rlen, umi_ref_offset: int):
     kernels.check(rlen, "rlen", torch.int32, (P,))
     score = torch.empty(P, dtype=torch.int32, device=query.device)
     qpos = torch.empty_like(score)
-    valid = torch.empty_like(score)
+    valid = torch.empty(P, dtype=torch.bool, device=query.device)
     fn = kernels.entry("sw_full", "sw_full", 7, 4)
     kernels.launch("sw_full", fn, query, qlen, refs, rlen, score, qpos,
                    valid, P, Lq, Lr, c)
-    return score, qpos, valid.bool()
+    return score, qpos, valid
 
 
 def sw_end2end(query, qlen, refs, rlen, umi_ref_offset: int,

@@ -2,15 +2,17 @@
 versions on the card, at ragged shapes and edges the main paths do not
 exercise (chip_smoke.py holds them at the main-path shapes); the chain DP
 in both of its gap classes, the adapter scan at the word boundaries of its
-bit vectors, the banded rescore at the pipeline's pair counts, the
-one-vs-all DP at the r_valid of whitelist shard tails; and the sharded
-matcher with every mesh cell on the card against the card's single-device
-matcher; the fused per-batch step on the card against the same step on the
-CPU, and K1 and K2+K3 at the step's shapes; the single-dispatch device step
-(the in-step K4 and K5 included) on the card against the CPU for each
-BC-UMI rule, and K1 at its bench shape. Every test is marked `cuda` and
-skips without a card. The file imports neither JAX nor the JAX package, so on a
-machine with a card and no JAX it runs as
+bit vectors, the banded rescore at the pipeline's pair counts, the full-row
+rescore's split at the UMI column on rows whose optima lie left of it,
+right of it and across it (held also by a torch model of the split,
+`split_model`), the one-vs-all DP at the r_valid of whitelist shard tails;
+and the sharded matcher with every mesh cell on the card against the card's
+single-device matcher; the fused per-batch step on the card against the
+same step on the CPU, and K1 and K2+K3 at the step's shapes; the
+single-dispatch device step (the in-step K4 and K5 included) on the card
+against the CPU for each BC-UMI rule, and K1 at its bench shape. Every test
+is marked `cuda` and skips without a card. The file imports neither JAX nor
+the JAX package, so on a machine with a card and no JAX it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
@@ -21,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import split_rows
 from nanoranger_torch import chemistry, kernels
 from nanoranger_torch.chemistry import SLIDESEQ_LINKER, TRUSEQ
 from nanoranger_torch.io import fasta, fastq, whitelist
@@ -591,6 +594,110 @@ def test_sw_full_kernel_ragged(dev, Lq, Lr, c):
     got = sw_end2end(*args, c)
     _equal(got, sw_end2end_plain(*args, c))
     assert int(got[2].sum()) > 0
+
+
+# (Lq, Lr, c) of the split's card test and of the CPU model test of
+# test_torch_sw_full.py, on chip_smoke.split_rows: the 5' row (chip_smoke.py
+# phase 2's split shape), the widest shape, c at both ends of the row, and a
+# one-base query
+SPLIT_CASES = [(96, 86, 46), (127, 128, 70), (48, 60, 0), (48, 60, 59),
+               (1, 37, 20)]
+
+
+def split_model(q, qlen, refs, rlen, c):
+    """A torch model of K6's split on the CPU: F over columns 0..k-1 and
+    B over columns lr-1..k, k = min(c + 1, lr) per pair, combined as
+    csrc/sw_full.cu combines them. Returns score, qpos, valid and the
+    three terms: max F[qlen][0..k], max B[0][k..lr] and
+    max_i F[i][k] + B[i][k]."""
+    q, qlen, refs, rlen = (torch.as_tensor(a).long()
+                           for a in (q, qlen, refs, rlen))
+    P, Lq = q.shape
+    Lr = refs.shape[1]
+    lane = torch.arange(Lq + 1)[None]
+    n = qlen[:, None]
+    lr = rlen.clamp(0, Lr)[:, None]
+    k = lr.clamp(max=c + 1)
+    row_ok = lane <= n
+    neg = torch.tensor(-(1 << 20))
+    qprev = torch.full((P, Lq + 1), PAD, dtype=torch.long)
+    qprev[:, 1:] = q
+    qcur = torch.roll(qprev, -1, dims=1)
+    qcur[:, -1] = PAD
+
+    def sub(qc, rj):
+        s = torch.where(qc == rj, 1, -1)
+        s = torch.where((qc == N) | (rj == N), 0, s)
+        return torch.where((qc == PAD) | (rj == PAD), -1, s)
+
+    def row(col, i):
+        return torch.gather(col, 1, i)[:, 0]
+
+    col = torch.where(row_ok, -lane, neg)                  # F[:, 0]
+    fside = row(col, n)
+    fc = col
+    for j in range(Lr):
+        if j == c:
+            fc = col                                       # F[:, c]
+        diag = torch.roll(col, 1, dims=1) + sub(qprev, refs[:, j:j + 1])
+        diag[:, 0] = neg
+        t = torch.maximum(diag, col - 1)
+        t[:, 0] = 0
+        new = torch.where(row_ok, torch.cummax(t + lane, 1).values - lane, neg)
+        col = torch.where(j < k, new, col)
+        fside = torch.where(j < k[:, 0], torch.maximum(fside, row(col, n)),
+                            fside)
+    bcol = torch.where(row_ok, lane - n, neg)               # B[:, lr]
+    bside = row(bcol, torch.zeros_like(n))
+    for j in range(Lr - 1, -1, -1):
+        diag = torch.roll(bcol, -1, dims=1) + sub(qcur, refs[:, j:j + 1])
+        t = torch.where(lane == n, 0, torch.maximum(diag, bcol - 1))
+        t = torch.where(lane > n, neg, t)              # the roll wraps
+        suf = torch.flip(torch.cummax(torch.flip(t - lane, [1]), 1).values,
+                         [1])
+        new = torch.where(row_ok, suf + lane, neg)
+        live = (j >= k) & (j < lr)
+        bcol = torch.where(live, new, bcol)
+        bside = torch.where(live[:, 0], torch.maximum(bside, bcol[:, 0]),
+                            bside)
+    cross = torch.where(row_ok, col + bcol, 2 * neg).max(1).values
+    score = torch.maximum(torch.maximum(fside, bside), cross)
+    tot = torch.roll(fc, 1, dims=1) + sub(qprev, refs[:, c:c + 1]) + bcol
+    ok = (lane >= 1) & row_ok & (tot == score[:, None]) & (c < lr)
+    qpos = torch.where(ok, lane - 1, -1).max(1).values
+    return (score.int(), qpos.int(), qpos >= 0,
+            (fside.int(), bside.int(), cross.int()))
+
+
+def side_decided(terms):
+    """Pairs whose optimum only the forward side term reaches, and pairs
+    only the backward side term reaches: a kernel that dropped either term
+    would score them lower."""
+    fside, bside, cross = terms
+    return (int((fside > torch.maximum(bside, cross)).sum()),
+            int((bside > torch.maximum(fside, cross)).sum()))
+
+
+@pytest.mark.parametrize("Lq,Lr,c", SPLIT_CASES)
+def test_sw_full_kernel_split(dev, Lq, Lr, c):
+    """K6 == its plain version on rows with no N pads, where the optimum
+    lies left of the split column, right of it or across it; and the rows
+    hold pairs that only a side term decides."""
+    rng = np.random.default_rng(Lq * Lr + c)
+    P = 300
+    arrs = split_rows(rng, P, Lq, Lr, c)
+    args = [torch.from_numpy(a).to(dev) for a in arrs]
+    before = kernels.launches["sw_full"]
+    got = sw_end2end(*args, c)
+    assert kernels.launches["sw_full"] == before + 1
+    want = sw_end2end_plain(*args, c)
+    _equal(got, want)
+    *model, terms = split_model(*arrs, c)
+    _equal(model, want)
+    if 8 <= c <= Lr - 8 and Lq > 1:
+        f_only, b_only = side_decided(terms)
+        assert f_only > 0 and b_only > 0
+        assert int(got[2].sum()) > P // 4
 
 
 def test_sw_full_wrapper_states_its_limit(dev):

@@ -1,8 +1,10 @@
 """Full-row rescorer of the PyTorch port (ops/sw.py::sw_end2end_plain, the
 plain version of the Hopper kernel csrc/sw_full.cu) against the JAX
 package's XLA scorer, its Pallas kernel in interpret mode and the numpy
-oracle; and the banded route against the full-row route on every
-chemistry's pad geometry. Score, validity and UMI position are integers and
+oracle; the banded route against the full-row route on every
+chemistry's pad geometry; and a torch model of the kernel's split at the UMI
+column (test_torch_kernels_cuda.split_model) against the XLA scorer on the
+card test's own rows. Score, validity and UMI position are integers and
 must be equal bit for bit."""
 
 import numpy as np
@@ -14,6 +16,8 @@ from nanoranger_tpu.ops.pallas_sw import sw_end2end_pallas
 from nanoranger_tpu.ops.sw import sw_end2end_reference, sw_end2end_xla
 
 from nanoranger_torch.ops import sw
+from test_torch_kernels_cuda import (SPLIT_CASES, side_decided, split_model,
+                                     split_rows)
 
 torch.set_num_threads(1)
 
@@ -133,3 +137,23 @@ def test_plain_refuses_a_column_outside_the_row(rng):
     q, qlen, refs, Lr = _case(rng, 4, 17, 16, P=3)
     with pytest.raises(ValueError, match="umi_ref_offset"):
         _plain(q, qlen, refs, np.full(3, Lr, np.int32), Lr)
+
+
+@pytest.mark.parametrize("Lq,Lr,c", SPLIT_CASES)
+def test_split_model_matches_xla(Lq, Lr, c):
+    """The identity csrc/sw_full.cu rests on: the forward half over columns
+    0..k-1, the backward half over lr-1..k, k = min(c + 1, lr), and the
+    three terms combined give the XLA scorer's score, UMI position and
+    validity, on the card test's rows (ragged rlen, some at or below c,
+    queries planted left of c, right of it and across it, qlen 0 and 1);
+    and on those rows each side term alone decides some pairs."""
+    rng = np.random.default_rng(Lq * Lr + c)
+    q, qlen, refs, rlen = split_rows(rng, 300, Lq, Lr, c)
+    s0, qp0, v0 = map(np.asarray, sw_end2end_xla(q, qlen, refs, rlen, c))
+    s1, qp1, v1, terms = split_model(q, qlen, refs, rlen, c)
+    np.testing.assert_array_equal(s1.numpy(), s0)
+    np.testing.assert_array_equal(v1.numpy(), v0)
+    np.testing.assert_array_equal(qp1.numpy(), qp0)
+    if 8 <= c <= Lr - 8 and Lq > 1:
+        f_only, b_only = side_decided(terms)
+        assert f_only > 0 and b_only > 0
