@@ -3,8 +3,14 @@
     python3 chip_smoke.py
 
 Phases, each of which must pass or the script exits non-zero:
+  prewarm — python -m nanoranger_torch.tools.prewarm, as a deployment runs
+               it before a first run: every kernel library (nvcc) and host
+               library (g++) built, one line each; whether g++ finds zlib
+               here (the native fastq reader needs it: only without zlib
+               may the reader's library fail to build)
   1. card    — print the card's name and power limit (nvidia-smi), build
-               the Hopper kernels from nanoranger_torch/csrc (timed)
+               the Hopper kernels from nanoranger_torch/csrc (timed),
+               which must find every library the prewarm built
   2. kernels — hold every kernel against its plain PyTorch version on the
                card, at the shapes the main paths give it: the 5p10XGEX
                shapes of the K562 run, the chain DP's splice class at the
@@ -65,7 +71,16 @@ Phases, each of which must pass or the script exits non-zero:
                TCR3 (full 737K whitelist, clone
                tables included), 3pXCR_slideseq on slideseq_XCR (full
                17,753-row list) and RTX on TCR3 (subreads and clonotypes,
-               no barcodes), launch counts reset before each run
+               no barcodes), launch counts reset before each run; every
+               run of phases 3 to bench counts the files each fastq reader
+               opened and fails if one fell back to the Python parser on a
+               host that builds the native reader
+  screens — ops/seed_screen.screen, ops/product_screen.product_screen and
+               product_screen_joint over the K562 run's BC-UMI candidates
+               at the match width (96) against the 737K list, on the card
+               and on the CPU, equal; each screen's time on both and its
+               recall (the share of the run's ACCEPT rows whose barcode is
+               among its candidates)
   5. sharded — K562 again with wl_shards=4, data_shards=2 (a 2x4 mesh of
                cells laid on the card) and slideseq_XCR with wl_shards=2:
                every artifact byte-identical to the unsharded run's (after
@@ -83,7 +98,10 @@ Phases, each of which must pass or the script exits non-zero:
                fused and unfused in turns (fused, unfused, unfused, fused),
                each pair's artifacts equal; wall, reads/s and
                steady_reads_per_s of each; then one fused run under
-               torch.profiler for the card's kernel time
+               torch.profiler for the card's kernel time; then one fused
+               run with the Python fastq parser forced, its artifacts
+               equal to the first fused run's (the native reader's), its
+               wall, phase_s.read and steady_reads_per_s beside theirs
   6. rescan  — the full-row rescorer on the real pairs of the two barcoded
                runs of phase 4: every accepted candidate against the full
                padded row of its barcode must give the banded rescorer's
@@ -96,9 +114,10 @@ without the package beside it, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --kernels
 
-runs phases 1 and 2 only and prints the card line: the quick check of the
-kernels, and the way to time two trees in turns (copy this script into a
-checkout of each and run them old, new, new, old in one call). Phase 2
+runs the prewarm and phases 1 and 2 only and prints the card line: the
+quick check of the kernels, and the way to time two trees in turns (copy
+this script into a checkout of each and run them old, new, new, old in
+one call). Phase 2
 first times an empty launch (a one-element fill_) in the same timer: the
 floor under any one launch, which no bound counts.
 
@@ -939,6 +958,154 @@ def ptxas_report(out_dir: str) -> int:
 
 
 # --------------------------------------------------------------------------
+# the whitelist screens on the card against the CPU
+
+def screen_tables(barcodes, spec):
+    """(plan, SeedTable, ProductTable) of a whitelist at the chemistry's
+    nominal barcode offset (ProductTable None for a list that is not a
+    product or whose pair table is too large)."""
+    from nanoranger_torch.io.encode import encode_batch
+    from nanoranger_torch.ops import product_screen as ps
+    from nanoranger_torch.ops import seed_screen as ss
+    codes, _ = encode_batch(list(barcodes), max_len=spec.bc_len)
+    plan = ss.plan_for(spec, spec.bc_query_offset)
+    return (plan, ss.SeedTable(codes, plan),
+            ps.ProductTable.build(codes, plan.half_bounds, plan.q_deltas))
+
+
+def run_screens(dev, tables, q, ql, reps=1):
+    """The bucket screen, the product screen and the joint product screen
+    over the offsets a candidate of width q.shape[1] holds, on `dev`:
+    {name: ((candidates, counts) as numpy, seconds a call)}; the first
+    call of each on the card is a warm-up."""
+    import torch
+
+    from nanoranger_torch.ops import product_screen as ps
+    from nanoranger_torch.ops import seed_screen as ss
+    plan, seed, prod = tables
+    tq, tql = (torch.from_numpy(a).to(dev) for a in (q, ql))
+    arrs = [torch.from_numpy(a[h]).to(dev) for h in (0, 1)
+            for a in (seed.starts, seed.counts, seed.entries,
+                      seed.half_keys)]
+    fns = {"seed_screen": lambda: ss.screen(tq, tql, *arrs, plan=plan,
+                                            maxocc=seed.maxocc)}
+    if prod is not None:
+        pa = [torch.from_numpy(a).to(dev)
+              for a in (prod.planes1, prod.planes2, prod.pair)]
+        fns["product_screen"] = lambda: ps.product_screen(
+            tq, tql, *pa, nominal=plan.nominal, jitter=plan.jitter,
+            q_delta2=prod.q_delta2, l1=prod.l1, l2=prod.l2)
+        fns["product_screen_joint"] = lambda: ps.product_screen_joint(
+            tq, tql, *pa, lo=0, hi=q.shape[1] - prod.q_delta2 - prod.l2,
+            q_delta2=prod.q_delta2, l1=prod.l1, l2=prod.l2)
+    out = {}
+    for name, fn in fns.items():
+        if dev.type == "cuda":
+            fn()
+            torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(reps):
+            r = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out[name] = (tuple(x.cpu().numpy() for x in r),
+                     (time.time() - t0) / reps)
+    return out
+
+
+def screens_phase(card, dev, barcodes, spec, outdir, s):
+    """The three screens on the card and on the CPU over the BC-UMI
+    candidates of a run (outdir, sample s) at the match width, against
+    the whole whitelist: the card's candidates and counts must equal the
+    CPU's. Prints each screen's card and CPU time and its recall: the
+    share of the run's ACCEPT rows (the exact matcher's) whose barcode is
+    among the screen's candidates. Returns a failure or None."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from nanoranger_torch.io.encode import encode_batch
+    from nanoranger_torch.io.fasta import iter_fasta
+    from nanoranger_torch.pipeline import MATCH_LQ
+    df = pd.read_csv(f"{outdir}/{s}_assignments.csv.gz",
+                     keep_default_na=False, dtype={"name": str, "bc": str})
+    seqs = [sq for _, sq in iter_fasta(f"{outdir}/{s}_BCUMI.fasta.gz")]
+    q, ql = encode_batch(seqs, max_len=MATCH_LQ)
+    row = {b: i for i, b in enumerate(barcodes)}
+    acc = np.flatnonzero(df.status.to_numpy() == 0)
+    want = np.array([row[b] for b in df.bc.to_numpy()[acc]])
+    t0 = time.time()
+    tables = screen_tables(barcodes, spec)
+    tables_s = time.time() - t0
+    gpu = run_screens(dev, tables, q, ql, reps=3)
+    cpu = run_screens(torch.device("cpu"), tables, q, ql)
+    out, bad = {}, []
+    for name, ((cand, cnt), sec) in gpu.items():
+        (c_cand, c_cnt), c_sec = cpu[name]
+        same = np.array_equal(cand, c_cand) and np.array_equal(cnt, c_cnt)
+        if not same:
+            bad.append(name)
+        out[name] = {"card_ms": round(sec * 1e3, 3),
+                     "cpu_ms": round(c_sec * 1e3, 1), "card_equals_cpu": same,
+                     "recall": round(float(np.mean(
+                         (cand[acc] == want[:, None]).any(axis=1))), 4)}
+    emit({"phase": "screens", "card": card, "candidates": int(len(q)),
+          "width": MATCH_LQ, "accepted": int(len(acc)),
+          "whitelist": len(barcodes), "tables_s": round(tables_s, 3),
+          "screens": out})
+    if bad or len(gpu) != 3:
+        return f"the screens on the card differ from the CPU: {bad}"
+    return None
+
+
+# --------------------------------------------------------------------------
+# the host libraries: the prewarm, zlib
+
+def zlib_on_host() -> bool:
+    """Whether g++ finds zlib's header and links -lz on this host (what
+    the native fastq reader needs)."""
+    src = "#include <zlib.h>\nint main() { return zlibVersion() == 0; }\n"
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            r = subprocess.run(["g++", "-x", "c++", "-", "-o",
+                                os.path.join(d, "a.out"), "-lz"],
+                               input=src, text=True, capture_output=True,
+                               timeout=120)
+        except OSError:
+            return False
+    return r.returncode == 0
+
+
+# whether this host builds the native fastq reader; every run must take it
+# then (set by the prewarm)
+HOST = {"reader": True}
+
+
+def prewarm_phase(card):
+    """python -m nanoranger_torch.tools.prewarm, as a deployment runs it
+    before its first run: every kernel and host library built. The reader
+    may fail to build only on a host without zlib. Returns a failure or
+    None."""
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m",
+                        "nanoranger_torch.tools.prewarm"], cwd=HERE,
+                       capture_output=True, text=True, timeout=900)
+    libs = [json.loads(ln) for ln in r.stdout.splitlines()
+            if ln.startswith("{")]
+    zlib = zlib_on_host()
+    failed = sorted(d.get("library", "cuda") for d in libs
+                    if "error" in d or "skipped" in d)
+    HOST["reader"] = "nrfastq" not in failed
+    emit({"phase": "prewarm", "card": card, "rc": r.returncode,
+          "seconds": round(time.time() - t0, 2), "zlib_on_host": zlib,
+          "libraries": libs})
+    if (failed and failed != ["nrfastq"]) or (failed and zlib) or \
+            len(libs) != 7:
+        return f"the prewarm failed: {failed} ({r.stderr[-2000:]})"
+    return None
+
+
+# --------------------------------------------------------------------------
 # phases 3 and 4: the main paths
 
 def tile_fastq(src, n_reads, dst):
@@ -1006,24 +1173,48 @@ def collect(outdir, s, mode):
     return g
 
 
+class _NoNativeReader:
+    """Stands in for the native fastq reader: every read-in takes the
+    Python parser, as when the reader's library cannot be built."""
+
+    def __init__(self, *a, **kw):
+        raise OSError("the parser is forced")
+
+
 def run_mode(name, mode, infile, panel, genome, wl, out, card, golden,
-             expect, shards=None, fast=None, batch_size=2048):
+             expect, shards=None, fast=None, batch_size=2048, parser=False):
     """One run of run_pipeline on the card with the launch counts set to 0
     just before and read just after; `shards` is (wl_shards, data_shards),
     and a sharded run times the steps of its match (which synchronises the
-    card at each step's end); fast=False takes the unfused path. The
-    launches made inside the fused step's calls are counted apart
-    (`step_launches`). Returns (launches, failure or None); the run's line
-    is kept in RUN_LINES[name]."""
+    card at each step's end); fast=False takes the unfused path;
+    parser=True forces the Python fastq parser. The launches made inside
+    the fused step's calls are counted apart (`step_launches`), and so are
+    the files each reader opened (`reader`): a run that fell back to the
+    parser on a host that builds the native reader fails. Returns
+    (launches, failure or None); the run's line is kept in
+    RUN_LINES[name]."""
     import torch
 
     from nanoranger_torch import kernels, pipeline
+    from nanoranger_torch.io import fastq
     from nanoranger_torch.parallel import sharded
+    from nanoranger_torch.runtime import native_lib
     from nanoranger_torch.stages import barcode
     verify_rows = []          # candidate rows (C) of each one-vs-all launch
     verify_all = barcode.verify_all
     build_cli_step = pipeline.build_cli_step
     in_step = dict.fromkeys(kernels.launches, 0)
+    readers = {"native": 0, "parser": 0}
+    native_reader, iter_fastq = native_lib.NativeFastqReader, fastq.iter_fastq
+
+    class CountingReader(native_reader):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            readers["native"] += 1
+
+    def counting_iter_fastq(path):
+        readers["parser"] += 1
+        return iter_fastq(path)
 
     def recording_verify_all(qq, *a, **kw):
         verify_rows.append(int(qq.shape[0]))
@@ -1042,6 +1233,9 @@ def run_mode(name, mode, infile, panel, genome, wl, out, card, golden,
 
     barcode.verify_all = sharded.verify_all = recording_verify_all
     pipeline.build_cli_step = counting_build
+    native_lib.NativeFastqReader = _NoNativeReader if parser else \
+        CountingReader
+    fastq.iter_fastq = counting_iter_fastq
     wl_shards, data_shards = shards or (1, 1)
     sharded.step_s = {} if shards else None
     try:
@@ -1059,6 +1253,8 @@ def run_mode(name, mode, infile, panel, genome, wl, out, card, golden,
     finally:
         barcode.verify_all = sharded.verify_all = verify_all
         pipeline.build_cli_step = build_cli_step
+        native_lib.NativeFastqReader = native_reader
+        fastq.iter_fastq = iter_fastq
         sharded.step_s = None
     got = collect(out, "t", mode) if golden is not None else {}
     with open(os.path.join(out, "t_runstats.json")) as f:
@@ -1073,7 +1269,7 @@ def run_mode(name, mode, infile, panel, genome, wl, out, card, golden,
             "steady_reads_per_s": stages[0].get("steady_reads_per_s"),
             "deferred_reads": stages[0].get("deferred_reads", 0),
             "phase_s": stages[0].get("phase_s"), "launches": launches,
-            "step_launches": in_step}
+            "step_launches": in_step, "reader": readers}
     RUN_LINES[name] = line
     emit({**line,
           "verify_rows_per_launch": verify_rows, "counts": got,
@@ -1086,6 +1282,10 @@ def run_mode(name, mode, infile, panel, genome, wl, out, card, golden,
                                         "index_s", "align_s", "cigar_s",
                                         "write_s")
                       if k in s} for s in stages]})
+    if readers["parser"] and HOST["reader"] and not parser:
+        return launches, (f"run {name} read {readers['parser']} file(s) "
+                          f"with the Python parser: the native reader "
+                          f"builds on this host")
     if golden is None:          # a run held only to its twin
         return launches, None
     bad = {k: (got.get(k), v) for k, v in golden.items() if got.get(k) != v}
@@ -1328,11 +1528,28 @@ def main() -> int:
         phase_s[name] = round(now - t_phase[0], 2)
         t_phase[0] = now
 
+    # the prewarm first, as a deployment runs it: phase 1 then finds every
+    # library built
+    why = prewarm_phase(card)
+    if why:
+        print(f"chip_smoke: {why}", file=sys.stderr)
+        return 1
+    from nanoranger_torch.runtime import native_lib
+    prebuilt = {n: os.path.isfile(kernels.lib_path(n))
+                for n in kernels.SOURCES}
+    prebuilt.update({n: os.path.isfile(native_lib._lib_path(n))
+                     for n in native_lib.LIBS})
     t0 = time.time()
     kernels.build_all()
     emit({"phase": "build", "seconds": round(time.time() - t0, 2),
           "libraries": sorted(kernels.SOURCES),
-          "dir": os.path.relpath(kernels.build_dir(), HERE)})
+          "dir": os.path.relpath(kernels.build_dir(), HERE),
+          "found_prebuilt": prebuilt})
+    if not all(v for n, v in prebuilt.items()
+               if n != "nrfastq" or HOST["reader"]):
+        print(f"chip_smoke: the prewarmed libraries are not all there: "
+              f"{prebuilt}", file=sys.stderr)
+        return 1
 
     phase_done("1_card_build")
     # the launch floor: one launch that does nothing, in the same timer
@@ -1534,6 +1751,14 @@ def main() -> int:
                 phase_done("3_main")
         phase_done("4_modes")
 
+        # the whitelist screens on the K562 run's candidates, card = CPU
+        why = screens_phase(card, dev, barcodes, spec.barcode, outs["k562"],
+                            "t")
+        if why:
+            print(f"chip_smoke: {why}", file=sys.stderr)
+            return 1
+        phase_done("screens")
+
         # phase 5: the sharded runs, held to the unsharded outdirs
         sharded_runs = [
             # (run, unsharded run, (wl_shards, data_shards), least launches,
@@ -1609,6 +1834,32 @@ def main() -> int:
                   for nm, _ in bench]})
         emit({"phase": "cli_bench_device_time", "card": card,
               **device_time(tiled, tmp())})
+        # the same shape fused once more with the Python parser forced:
+        # its artifacts equal the first fused run's (the native reader's)
+        nm, out = "cli_bench_parser", tmp()
+        by_run[nm], why = run_mode(nm, "5p10XGEX", tiled, PANEL,
+                                   "/nonexistent", WHITELIST, out, card,
+                                   None, ("chain", "ed"), parser=True)
+        if why:
+            print(f"chip_smoke: {why}", file=sys.stderr)
+            return 1
+        got, first = artifact_digests(out), artifact_digests(bench[0][1])
+        differ = sorted(k for k in set(got) | set(first)
+                        if got.get(k) != first.get(k))
+        emit({"phase": "cli_bench_reader", "card": card, "reads": n_bench,
+              "runs": [{"run": r, "path": RUN_LINES[r]["path"],
+                        "reader": RUN_LINES[r]["reader"],
+                        "wall_s": RUN_LINES[r]["wall_s"],
+                        "steady_reads_per_s":
+                            RUN_LINES[r]["steady_reads_per_s"],
+                        "read_s": (RUN_LINES[r]["phase_s"] or {}).get(
+                            "read")}
+                       for r in (bench[0][0], bench[3][0], nm)],
+              "differ": differ})
+        if differ or RUN_LINES[nm]["path"] != "fused":
+            print(f"chip_smoke: the parser's cli_bench run differs from "
+                  f"the native reader's in {differ}", file=sys.stderr)
+            return 1
         phase_done("cli_bench")
 
         kernels.reset_launches()

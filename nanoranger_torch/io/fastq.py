@@ -97,9 +97,30 @@ def iter_batches(path: str, batch_size: int = 4096,
                  max_len: int | None = None,
                  pad_to_multiple: int | None = None) -> Iterator[ReadBatch]:
     """Stream fixed-shape batches; width per _bucket_len, `max_len`
-    truncates pathological ultra-long reads. This is the pure-Python
-    parser of the JAX package's io/fastq.py, which gives the same batches as
-    that package's native reader."""
+    truncates pathological ultra-long reads. Uses the native (C++) reader
+    when `max_len` is given and its library is available
+    (runtime/native/fastq_reader.cpp), the Python parser otherwise —
+    identical batches either way."""
+    if max_len is not None:
+        try:
+            from ..runtime.native_lib import NativeFastqReader
+            rdr = NativeFastqReader(path, batch_size, max_len)
+        except OSError:
+            rdr = None
+        if rdr is not None:
+            try:
+                while True:
+                    out = rdr.next_batch()
+                    if out is None:
+                        return
+                    codes, lengths, names, quals = out
+                    L = _bucket_len(int(lengths.max(initial=0)), max_len,
+                                    pad_to_multiple)
+                    yield ReadBatch(np.ascontiguousarray(codes[:, :L]),
+                                    lengths, names, quals)
+            finally:
+                rdr.close()
+
     buf: list[FastqRecord] = []
     for rec in iter_fastq(path):
         buf.append(rec)

@@ -1,18 +1,21 @@
-"""Build + ctypes bindings of the host C++ library.
+"""Build + ctypes bindings of the host C++ libraries.
 
-Counterpart of the JAX package's runtime/native_lib.py, of which it keeps
-`banded_align_batch` (base-level global alignment with traceback, for the
-clonotyper's frame pinning and the BAM boundary) with its numpy twin, and
-`wl_verify_all`, the host twin of the one-vs-all whitelist DP
+Counterpart of the JAX package's runtime/native_lib.py, with its three host
+sources: `banded_align_batch` (base-level global alignment with traceback,
+for the clonotyper's frame pinning and the BAM boundary) with its numpy
+twin; `wl_verify_all`, the host twin of the one-vs-all whitelist DP
 (csrc/verify.cu on the card), which ops/whitelist_verify.verify_all runs
-for CPU tensors. This is host code in both packages, not a device kernel.
-The JAX package's native fastq reader is not carried: the port has its own
-parser.
+for CPU tensors; and `NativeFastqReader`, the streaming fastq(.gz) reader
+that io/fastq.iter_batches takes whenever a batch width cap is given. This
+is host code in both packages, not a device kernel.
 
-The library is built by g++ at first use into `_build/` beside the
-package (keyed by a digest of the sources and flags) and loaded with
-ctypes; when no compiler is available the callers run their torch or
-numpy versions instead, as in the JAX package.
+Each library is built by g++ at first use into its own directory under
+`_build/` beside the package (keyed by a digest of its sources, flags and
+link libraries) and loaded with ctypes. The reader links zlib and builds
+apart from the other two, so a host without zlib still builds the aligner
+and the DP twin. When a library cannot be built its callers run their
+torch or numpy versions, or the Python parser, instead, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -26,48 +29,64 @@ import numpy as np
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRCS = [os.path.join(_PKG, "runtime", "native", f)
-         for f in ("banded_align.cpp", "whitelist_verify.cpp")]
+BUILD_ROOT = os.path.join(_PKG, "_build")
 _FLAGS = ["-O3", "-shared", "-fPIC", "-pthread"]
+# library -> (sources under runtime/native/, link libraries)
+LIBS = {
+    "nrnative": (("banded_align.cpp", "whitelist_verify.cpp"), ()),
+    "nrfastq": (("fastq_reader.cpp",), ("-lz",)),
+}
 
-_lib = None
-_tried = False
+_loaded: dict = {}
 
 
-def _lib_path() -> str:
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in _SRCS:
+def _srcs(name: str) -> list:
+    return [os.path.join(_PKG, "runtime", "native", f)
+            for f in LIBS[name][0]]
+
+
+def _lib_path(name: str = "nrnative") -> str:
+    libs = list(LIBS[name][1])
+    h = hashlib.sha256(" ".join(_FLAGS + libs).encode())
+    for src in _srcs(name):
         with open(src, "rb") as f:
             h.update(f.read())
-    return os.path.join(_PKG, "_build", f"host_{h.hexdigest()[:16]}",
-                        "libnrnative.so")
+    return os.path.join(BUILD_ROOT, f"host_{h.hexdigest()[:16]}",
+                        f"lib{name}.so")
 
 
-def _build(dst: str) -> bool:
+def build(name: str) -> str | None:
+    """Build library `name` unless its file is there. Returns None, or the
+    reason it could not be built (the compiler's message)."""
+    dst = _lib_path(name)
+    if os.path.isfile(dst):
+        return None
     os.makedirs(os.path.dirname(dst), exist_ok=True)
     tmp = f"{dst}.{os.getpid()}.tmp"
     try:
-        subprocess.run(["g++", *_FLAGS, *_SRCS, "-o", tmp], check=True,
-                       capture_output=True)
-    except (OSError, subprocess.CalledProcessError):
-        return False
+        subprocess.run(["g++", *_FLAGS, *_srcs(name), "-o", tmp,
+                        *LIBS[name][1]], check=True, capture_output=True)
+    except OSError as e:
+        return str(e)
+    except subprocess.CalledProcessError as e:
+        return e.stderr.decode(errors="replace")
     os.replace(tmp, dst)
-    return True
+    return None
 
 
-def get_lib():
-    """The loaded library, or None when it cannot be built or loaded."""
-    global _lib, _tried
-    if _lib is not None or _tried:
-        return _lib
-    _tried = True
-    path = _lib_path()
-    if not os.path.isfile(path) and not _build(path):
-        return None
-    try:
-        lib = ctypes.CDLL(path)
-    except OSError:
-        return None
+def _declare(name: str, lib) -> None:
+    if name == "nrfastq":
+        lib.fq_open.restype = ctypes.c_void_p
+        lib.fq_open.argtypes = [ctypes.c_char_p]
+        lib.fq_next_batch.restype = ctypes.c_int
+        lib.fq_next_batch.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p]
+        lib.fq_close.restype = None
+        lib.fq_close.argtypes = [ctypes.c_void_p]
+        return
     lib.banded_align_batch.restype = ctypes.c_int
     lib.banded_align_batch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -81,8 +100,83 @@ def get_lib():
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int]
-    _lib = lib
-    return _lib
+
+
+def load(name: str):
+    """The loaded library `name`, or None when it cannot be built or
+    loaded (tried once a process)."""
+    if name not in _loaded:
+        lib = None
+        if build(name) is None:
+            try:
+                lib = ctypes.CDLL(_lib_path(name))
+            except OSError:
+                lib = None
+        if lib is not None:
+            _declare(name, lib)
+        _loaded[name] = lib
+    return _loaded[name]
+
+
+def get_lib():
+    """The aligner and DP twin's library, or None."""
+    return load("nrnative")
+
+
+class NativeFastqReader:
+    """Streaming fastq(.gz) reader backed by the host C++ library (zlib
+    inflate + parse + base-encode in one pass). Raises OSError if the
+    library is unavailable or the file cannot be opened: callers fall back
+    to the Python parser."""
+
+    def __init__(self, path: str, batch_size: int, max_len: int):
+        lib = load("nrfastq")
+        if lib is None:
+            raise OSError("native fastq reader library unavailable")
+        self._lib = lib
+        self._h = lib.fq_open(path.encode())
+        if not self._h:
+            raise OSError(f"cannot open {path}")
+        self.batch_size = batch_size
+        self.max_len = max_len
+
+    def next_batch(self):
+        """Returns (codes (n, max_len) int8, lengths (n,) i32, names
+        list[str], quals list[bytes]) or None at EOF."""
+        B, L = self.batch_size, self.max_len
+        codes = np.empty((B, L), np.int8)
+        lengths = np.empty(B, np.int32)
+        name_cap = B * 1024
+        qual_cap = B * L
+        name_buf = np.empty(name_cap, np.uint8)
+        qual_buf = np.empty(qual_cap, np.uint8)
+        name_off = np.empty(B + 1, np.int32)
+        qual_off = np.empty(B + 1, np.int32)
+        n = self._lib.fq_next_batch(
+            self._h, B, L, codes.ctypes.data, lengths.ctypes.data,
+            name_buf.ctypes.data, name_cap, name_off.ctypes.data,
+            qual_buf.ctypes.data, qual_cap, qual_off.ctypes.data)
+        if n == 0:
+            return None
+        if n < 0:
+            raise ValueError(f"malformed fastq or arena overflow (rc={n})")
+        nb = name_buf[:name_off[n]].tobytes()
+        qb = qual_buf[:qual_off[n]].tobytes()
+        names = [nb[name_off[i]:name_off[i + 1]].decode("ascii")
+                 for i in range(n)]
+        quals = [qb[qual_off[i]:qual_off[i + 1]] for i in range(n)]
+        return codes[:n], lengths[:n], names, quals
+
+    def close(self):
+        if self._h:
+            self._lib.fq_close(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
 
 def banded_align_batch(q_segs: list[np.ndarray], t_segs: list[np.ndarray],

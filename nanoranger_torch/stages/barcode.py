@@ -485,7 +485,10 @@ class BarcodeMatcher:
         pass them to `match_device_with` (the fused step's tables). The
         sorted key tables only: tier lookups binary-search them with
         torch.searchsorted, where the JAX package adds cuckoo hash tables
-        on accelerators that give the same answers."""
+        on accelerators that give the same answers. A torch probe of
+        those tables took no less time than the search on an H100 (the
+        device step and the fused CLI step, PERF.md), so it is not
+        carried."""
         return self.tables
 
     def _tiers(self, q, qlen, classes: str = "full"):

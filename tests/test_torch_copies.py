@@ -7,7 +7,10 @@ their import lines and the device the merge's pipeline tail runs on; the
 fused step's host assembly (stages/cli_step.py: BatchAssembly,
 assemble_batch and their tables) is the JAX package's code; the host twin
 of the one-vs-all DP (runtime/native/whitelist_verify.cpp) is the JAX
-package's source less its comments."""
+package's source less its comments, and so is the native fastq reader
+(runtime/native/fastq_reader.cpp); the host builds of the two whitelist
+screens (ops/seed_screen.py, ops/product_screen.py) are the JAX package's
+code."""
 
 import ast
 import dataclasses
@@ -27,6 +30,8 @@ from nanoranger_tpu.downstream import isoforms as jax_isoforms
 from nanoranger_tpu.downstream import pileup as jax_pileup
 from nanoranger_tpu.downstream import read_stats as jax_read_stats
 from nanoranger_tpu.io import bam as jax_bam
+from nanoranger_tpu.ops import product_screen as jax_product_screen
+from nanoranger_tpu.ops import seed_screen as jax_seed_screen
 from nanoranger_tpu.stages import cli_step as jax_cli_step
 from nanoranger_tpu.stages import counting as jax_counting
 from nanoranger_tpu.tools import merge_shards as jax_merge_shards
@@ -39,6 +44,7 @@ from nanoranger_torch.downstream import (fusion_gene, isoforms, pileup,
                                          read_stats)
 from nanoranger_torch.io import bam, encode, fasta, fastq, whitelist
 from nanoranger_torch.io.candidate_store import CandidateStore
+from nanoranger_torch.ops import product_screen, seed_screen
 from nanoranger_torch.stages import cli_step, counting
 from nanoranger_torch.tools import merge_shards, split_fastq
 
@@ -236,3 +242,21 @@ def test_host_twin_of_the_verify_kernel_is_the_jax_source():
     rel = os.path.join("runtime", "native", "whitelist_verify.cpp")
     assert _cpp_code(os.path.join(REPO, "nanoranger_torch", rel)) == \
         _cpp_code(os.path.join(REPO, "nanoranger_tpu", rel))
+
+
+def test_native_fastq_reader_is_the_jax_source():
+    rel = os.path.join("runtime", "native", "fastq_reader.cpp")
+    assert _cpp_code(os.path.join(REPO, "nanoranger_torch", rel)) == \
+        _cpp_code(os.path.join(REPO, "nanoranger_tpu", rel))
+
+
+@pytest.mark.parametrize("pair,name", [
+    ((seed_screen, jax_seed_screen), n) for n in (
+        "BUCKET_LIMIT", "SeedPlan", "plan_for", "_next_pow2", "SeedTable",
+        "_pack_np")
+] + [((product_screen, jax_product_screen), n) for n in (
+    "PAIR_LIMIT", "ProductTable", "_pack", "_onehot_planes")],
+    ids=lambda v: v if isinstance(v, str) else v[0].__name__.split(".")[-1])
+def test_host_builds_of_the_screens_are_the_jax_code(pair, name):
+    port, jax_mod = pair
+    assert _top_level_code(port, name) == _top_level_code(jax_mod, name)

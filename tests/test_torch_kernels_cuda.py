@@ -10,7 +10,8 @@ and the sharded matcher with every mesh cell on the card against the card's
 single-device matcher; the fused per-batch step on the card against the
 same step on the CPU, and K1 and K2+K3 at the step's shapes; the
 single-dispatch device step (the in-step K4 and K5 included) on the card
-against the CPU for each BC-UMI rule, and K1 at its bench shape. Every test
+against the CPU for each BC-UMI rule, and K1 at its bench shape; the
+three whitelist screens on the card against the CPU. Every test
 is marked `cuda` and skips without a card. The file imports neither JAX nor
 the JAX package, so on a machine with a card and no JAX it runs as
 
@@ -23,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import split_rows
+from chip_smoke import run_screens, screen_tables, split_rows
 from nanoranger_torch import chemistry, kernels
 from nanoranger_torch.chemistry import SLIDESEQ_LINKER, TRUSEQ
 from nanoranger_torch.io import fasta, fastq, whitelist
@@ -1130,3 +1131,23 @@ def test_chain_kernel_at_the_device_step_shape(dev):
     assert ch["t"].shape == (1024, 2048) and int(ch["valid"].sum()) > 0
     args = (ch["t"], ch["q"], ch["seg"], ch["valid"], K, MAX_GAP, BANDWIDTH)
     _equal(chain_dp(*args), chain_dp_plain(*args))
+
+
+@pytest.mark.parametrize("mode", ["5p10XGEX", "3pXCR_slideseq"])
+def test_screens_on_the_card_equal_the_cpu(dev, wl_737k, mode):
+    """seed_screen.screen, product_screen.product_screen and
+    product_screen_joint (a product list only) give on the card what they
+    give on the CPU, against the whole list."""
+    spec = chemistry.get(mode).barcode
+    rng = np.random.default_rng(7 + len(mode))
+    bcs = wl_737k if mode == "5p10XGEX" else whitelist.load(WL_SLIDESEQ)
+    tables = screen_tables(bcs, spec)
+    q, qlen = _match_candidates(rng, spec, bcs, 600)
+    got = run_screens(dev, tables, q, qlen)
+    want = run_screens(torch.device("cpu"), tables, q, qlen)
+    assert sorted(got) == sorted(want) and len(got) == (
+        3 if mode == "5p10XGEX" else 1)
+    for name in want:
+        for g, w in zip(got[name][0], want[name][0]):
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        assert (got[name][0][0][:, 0] >= 0).sum() > 100
