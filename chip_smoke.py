@@ -102,6 +102,20 @@ Phases, each of which must pass or the script exits non-zero:
                run with the Python fastq parser forced, its artifacts
                equal to the first fused run's (the native reader's), its
                wall, phase_s.read and steady_reads_per_s beside theirs
+  scale   — nanoranger_torch/tools/scale_bench.py's synthesize() and
+               measure() at the full 1,000,000-row product list, the
+               transcriptome and the reads cut (SCALE_CUT: 32 Mb over 800
+               transcripts of 40,000 bases, 4,000 reads; printed as
+               `reduced` beside the tool's defaults): the tool's result
+               line; K1, K2+K3, K4 and K5 must each launch (the counts set
+               to 0 just before the pipeline, `scale` in launches_by_run)
+               and some reads be accepted; K4 at the run's first launch,
+               cut to 128 rows, against its plain version on the 1M list
+               (a phase-2 kernel row, taken here since the launch is known
+               only now); one run of the same files under torch.profiler
+               (the card's busy share, K4's time); the first 100 reads
+               through the pipeline on the card and on the CPU, every
+               artifact equal
   6. rescan  — the full-row rescorer on the real pairs of the two barcoded
                runs of phase 4: every accepted candidate against the full
                padded row of its barcode must give the banded rescorer's
@@ -778,20 +792,28 @@ def recorded_verify_args(fn):
     return calls
 
 
-def kernel_time(prof) -> dict:
+def kernel_time(prof, of=None) -> dict:
     """The card's kernel time in a torch.profiler run (one stream, so
     kernels do not overlap), its launches and the ten kernels with the most
-    time."""
+    time; with `of`, also the milliseconds and launches of the kernels
+    whose name holds it, from one key_averages() (slow on a run of
+    100,000 launches)."""
     import torch
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
-    return {"kernel_s": round(sum(e.self_device_time_total
-                                  for e in kern) / 1e6, 4),
-            "kernel_launches": int(sum(e.count for e in kern)),
-            "top_kernels": [[e.key[:60], round(e.self_device_time_total
-                                               / 1e3, 3), e.count]
-                            for e in top]}
+    out = {"kernel_s": round(sum(e.self_device_time_total
+                                 for e in kern) / 1e6, 4),
+           "kernel_launches": int(sum(e.count for e in kern)),
+           "top_kernels": [[e.key[:60], round(e.self_device_time_total
+                                              / 1e3, 3), e.count]
+                           for e in top]}
+    if of:
+        hit = [e for e in kern if of in e.key]
+        out[f"{of}_ms"] = round(sum(e.self_device_time_total
+                                    for e in hit) / 1e3, 3)
+        out[f"{of}_launches"] = int(sum(e.count for e in hit))
+    return out
 
 
 def device_step_phase(card, step, batches, barcodes, index, spec):
@@ -1423,6 +1445,107 @@ def artifact_digests(outdir):
 
 
 # --------------------------------------------------------------------------
+# the scale phase: nanoranger_torch/tools/scale_bench.py at the full
+# 1,000,000-row product list, the transcriptome and the reads cut
+
+# the tool runs 160 Mb over 4,000 transcripts and 20,000 reads; the phase
+# keeps the transcripts' length (40,000 bases) and the list whole
+SCALE_CUT = {"mb": 32, "n_refs": 800, "n_wl": 1_000_000, "reads": 4_000}
+SCALE_PREFIX = 100          # reads run on the card and on the CPU
+SCALE_KERNELS = ("chain", "ed", "verify", "sw")
+
+
+def cut_verify_args(args, rows=128):
+    """A one-vs-all launch's arguments cut to at most `rows` candidate rows:
+    the first rows/2 forward candidates and their reverse complements."""
+    import torch
+    qq, qql = args[:2]
+    n = qq.shape[0] // 2
+    k = min(n, rows // 2)
+
+    def pick(x):
+        return torch.cat([x[:k], x[n:n + k]]).contiguous()
+    return (pick(qq), pick(qql), *args[2:])
+
+
+def write_prefix(src, n_reads, dst):
+    """The first n_reads records of a gzipped fastq."""
+    with gzip.open(src, "rt") as f:
+        lines = [line for _, line in zip(range(4 * n_reads), f)]
+    with gzip.open(dst, "wt") as g:
+        g.writelines(lines)
+
+
+def scale_phase(card, d, out_card, out_cpu, prof_out):
+    """The scale tool's run at SCALE_CUT on the card, through its own
+    synthesize() and measure() (launch counts set to 0 inside, just before
+    the pipeline, and read just after): K1, K2+K3, K4 and K5 must launch
+    and some reads be accepted. Then K4 at the run's first launch (cut to
+    128 rows) against its plain version on the 1M-row list, one profiled
+    run of the same files (the card's kernel time and K4's), and the first
+    SCALE_PREFIX reads through the pipeline on the card and on the CPU,
+    every artifact equal. Returns (failure or None, the run's launches,
+    the K4 row)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nanoranger_torch.pipeline import run_pipeline
+    from nanoranger_torch.tools import scale_bench
+    t0 = time.time()
+    bcs, truth = scale_bench.synthesize(d, **SCALE_CUT)
+    gen_s = time.time() - t0
+    res = {}
+    calls = recorded_verify_args(lambda: res.update(scale_bench.measure(
+        d, truth, SCALE_CUT["mb"], SCALE_CUT["n_refs"], len(bcs), "cuda")))
+    launches = res["launches"]
+    emit({"phase": "scale", "card": card, "reduced": {
+        k: [SCALE_CUT[k], v] for k, v in scale_bench.DEFAULTS.items()
+        if SCALE_CUT[k] != v}, "synthesize_s": round(gen_s, 2),
+        "verify_rows_per_launch": [int(a[0].shape[0]) for a in calls],
+        "verify_bound_ms_per_launch": [verify_bound(a)[0] for a in calls],
+        **res})
+    idle = [k for k in SCALE_KERNELS if launches[k] <= 0]
+    if idle or not calls:
+        return f"the scale run never launched {idle or ['verify']}", \
+            launches, None
+    if res["accepted"] <= 0:
+        return "the scale run accepted no read", launches, None
+    k4 = check_verify(cut_verify_args(calls[0]))[0]
+
+    kw = dict(trns_ref=f"{d}/txome.fa", genome_ref="/nonexistent",
+              barcodes=f"{d}/wl.txt.gz", batch_size=512)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_pipeline("5p10XGEX", f"{d}/reads.fastq.gz", prof_out, "t",
+                     device="cuda", **kw)
+        torch.cuda.synchronize()
+    prof_wall = time.time() - t1
+    kt = kernel_time(prof, of="verify_kernel")
+
+    prefix = os.path.join(d, "prefix.fastq.gz")
+    write_prefix(f"{d}/reads.fastq.gz", SCALE_PREFIX, prefix)
+    walls = {}
+    for out, device in ((out_card, "cuda"), (out_cpu, "cpu")):
+        t2 = time.time()
+        run_pipeline("5p10XGEX", prefix, out, "t", device=device, **kw)
+        walls[device] = round(time.time() - t2, 2)
+    got, want = artifact_digests(out_card), artifact_digests(out_cpu)
+    differ = sorted(k for k in set(got) | set(want)
+                    if got.get(k) != want.get(k))
+    emit({"phase": "scale_check", "card": card,
+          "profiled_wall_s": round(prof_wall, 3),
+          "busy_share": round(kt["kernel_s"] / prof_wall, 4), **kt,
+          "prefix_reads": SCALE_PREFIX, "prefix_wall_s": walls,
+          "artifacts": len(want), "differ": differ})
+    if differ or not want:
+        return (f"the scale prefix on the card differs from the CPU in "
+                f"{differ}"), launches, k4
+    return None, launches, k4
+
+
+# --------------------------------------------------------------------------
 # phase 6: the full-row rescorer on a run's real pairs
 
 def rescan_real_pairs(outdir, s, spec, device):
@@ -1861,6 +1984,26 @@ def main() -> int:
                   f"the native reader's in {differ}", file=sys.stderr)
             return 1
         phase_done("cli_bench")
+
+        # the scale regime: the 1M-row product list, the transcriptome and
+        # the reads cut (SCALE_CUT); K4 at the run's first launch joins
+        # phase 2's rows
+        why, by_run["scale"], k4 = scale_phase(card, tmp(), tmp(), tmp(),
+                                               tmp())
+        if k4 is not None:
+            name = f"verify_scale_C{k4['shape'][0]}_1m"
+            emit({"phase": "kernel", "kernel": name, "card": card,
+                  "kernel_ms": k4["ms"], "bound_ms": k4["bound"][0],
+                  "bound_by": k4["bound"][1],
+                  **{k: v for k, v in k4.items() if k not in ("bound",
+                                                              "ms")}})
+            if k4["mismatches"]:
+                why = why or (f"kernel {name} disagrees with its plain "
+                              f"version")
+        if why:
+            print(f"chip_smoke: {why}", file=sys.stderr)
+            return 1
+        phase_done("scale")
 
         kernels.reset_launches()
         for name, mode in (("tcr3", "5p10XTCR"),

@@ -135,9 +135,9 @@ def prepare_index_arrays(index: PanelIndex, device):
     counts = np.bincount(pref, minlength=space).astype(np.int32)
     starts = np.zeros(space, np.int32)
     np.cumsum(counts[:-1], out=starts[1:])
-    windows = build_windows([t, h.astype(np.int32), seg], OCC_CAP)
-    return tuple(torch.from_numpy(a).to(device)
-                 for a in (starts, counts, windows))
+    windows = build_windows([t, h.astype(np.int32), seg], OCC_CAP, device)
+    return (torch.from_numpy(starts).to(device),
+            torch.from_numpy(counts).to(device), windows)
 
 
 @dataclasses.dataclass
@@ -304,11 +304,14 @@ class PanelAligner:
     devices: optional list of devices for data-parallel streaming — batch
     i runs on devices[i % n] (pass shard= to _chain); the index tensors
     are copied once to each distinct device, and the work follows the
-    batch's placement."""
+    batch's placement.
+
+    index_arrays: optional prepare_index_arrays(index, device) output built
+    by the caller (one device only), used instead of a second copy."""
 
     def __init__(self, index: PanelIndex, device,
                  max_minimizers: int | None = None, preset: str = "map-ont",
-                 devices: list | None = None):
+                 devices: list | None = None, index_arrays=None):
         if preset not in ("map-ont", "splice"):
             raise ValueError(f"unknown preset {preset!r}")
         self.index = index
@@ -318,6 +321,10 @@ class PanelAligner:
         self.devices = ([torch.device(d) for d in devices] if devices
                         else [self.device])
         self._idx = {}
+        if index_arrays is not None:
+            if len(self.devices) != 1:
+                raise ValueError("index_arrays serve one device")
+            self._idx[self.devices[0]] = tuple(index_arrays)
         for d in self.devices:
             if d not in self._idx:
                 self._idx[d] = prepare_index_arrays(index, d)

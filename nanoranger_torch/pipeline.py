@@ -189,6 +189,10 @@ class DeconRun:
         self.spec = spec
         self.prematch = None
         self.n_deferred = 0
+        # the fused path's index: its tensors' bytes and the seconds to
+        # build them (the unfused path leaves both None)
+        self.index_bytes = None
+        self.index_s = None
         t0 = time.time()
         sub_kind = "VDJ" if spec.name in (
             "3pXCR_slideseq", "3p10XTCR", "3p10XTCR_nuc") else "deconcat"
@@ -222,13 +226,14 @@ class DeconRun:
                 f"({time.time() - t0:.1f}s)")
             return
 
+        t_index = time.time()
         self.index = PanelIndex.from_fasta(trns_ref)
         if fast is None:
             fast = (data_shards <= 1 and
                     os.environ.get("NANORANGER_NO_FAST", "") != "1")
         if fast:
             self._run_fast(spec, infile, sample, torch.device(device),
-                           batch_size, max_len, matcher, t0)
+                           batch_size, max_len, matcher, t0, t_index)
             return
         # batch i chains on data cell i % data_shards, the cells laid over
         # the devices round-robin
@@ -283,7 +288,7 @@ class DeconRun:
             f"({time.time() - t0:.1f}s)")
 
     def _run_fast(self, spec, infile, sample, dev, batch_size, max_len,
-                  matcher, t0):
+                  matcher, t0, t_index):
         """Fused path: one step call per batch (stages/cli_step.py) on
         `dev`; the host assembles the artifacts from the downloaded slot
         arrays.
@@ -316,13 +321,19 @@ class DeconRun:
         compiles land before the steady-state marker. The port has neither:
         the kernels build at first use (kernels.py), eager torch compiles
         nothing, and the fallback runs the step's own kernels and torch
-        ops; its one-time cost is its aligner's index tables, built at the
-        first window with a deferred read. The marker (steady_reads_per_s)
-        re-arms whenever a bucket dispatches for the first time."""
+        ops, and its aligner takes the step's index tensors (a second copy
+        of a whole-transcriptome index would cost seconds and gigabytes).
+        The marker (steady_reads_per_s) re-arms whenever a bucket
+        dispatches for the first time."""
         cli_matcher = matcher if _matcher_in_step(dev) else None
         step, tables = build_cli_step(spec, self.index, matcher=cli_matcher,
                                       device=dev)
+        index_arrays = tuple(tables[k] for k in
+                             ("prefix_start", "prefix_count", "windows"))
+        self.index_bytes = sum(t.nbytes for t in index_arrays)
+        self.index_s = time.time() - t_index
         self._fallback_aligner = None
+        self._index_arrays = index_arrays
         self._dev = dev
         BUCKETS = sorted({max(256, min(1024, max_len)),
                           max(256, min(2048, max_len)), max(256, max_len)})
@@ -571,7 +582,8 @@ class DeconRun:
         fused step's slots), regrouped per input row for the in-order
         interleave of assemble_batch."""
         if self._fallback_aligner is None:
-            self._fallback_aligner = PanelAligner(self.index, self._dev)
+            self._fallback_aligner = PanelAligner(
+                self.index, self._dev, index_arrays=self._index_arrays)
         sl = np.asarray(lengths, np.int32)
         ch = self._fallback_aligner._chain(codes, sl)
         rec = extract_records(ch, self.index)
@@ -1052,6 +1064,9 @@ def run_pipeline(mode, infile, outdir, sample, trns_ref=None, genome_ref=None,
                resumed=run.resumed, whitelist_s=whitelist_s,
                shard_tables_s=shard_tables_s,
                deferred_reads=run.n_deferred or None,
+               index_bytes=run.index_bytes,
+               index_s=(round(run.index_s, 3) if run.index_s is not None
+                        else None),
                steady_reads_per_s=getattr(run, "steady_reads_per_s", None),
                phase_s={k: round(v, 3) for k, v in phase_s.items()}
                if phase_s else None)

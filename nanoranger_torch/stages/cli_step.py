@@ -274,6 +274,11 @@ def build_cli_step(spec: ChemistrySpec, index: PanelIndex, matcher=None,
     must live on `device`.
     """
     dev = torch.device(device)
+    n_bases = int(index.ref_lens.astype(np.int64).sum())
+    if n_bases >= 1 << 31:
+        raise ValueError(
+            f"the reference holds {n_bases} bases; the step addresses it "
+            "with int32 offsets, which reach 2^31 - 1")
     ps, pc, windows = prepare_index_arrays(index, dev)
     tables = {
         "prefix_start": ps, "prefix_count": pc, "windows": windows,

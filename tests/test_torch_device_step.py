@@ -19,10 +19,9 @@ tables); `entry(device="cpu")` against the graft entry's step; and
 `build_sharded_align` on a 2 x 2 CPU mesh against the JAX one on the
 conftest's virtual devices and the port's 1 x 1 mesh.
 
-Each JAX program is lowered once and all are compiled side by side in one
-module fixture: an XLA compile of a step takes 10-20 s on a CPU."""
-
-from concurrent.futures import ThreadPoolExecutor
+The module fixture builds each JAX program once; a program is lowered and
+compiled when a test first runs it (an XLA compile of a step takes 10-20 s
+on a CPU), so no test waits for the compiles of the others."""
 
 import jax
 import numpy as np
@@ -169,13 +168,19 @@ def _tied_chains(rng):
             "root": root}, np.full(n, 640, np.int32)
 
 
-def _compiled(programs):
-    """{name: callable}: each JAX program (jitted fn, args) lowered in turn,
-    then all compiled side by side."""
-    lowered = {k: fn.lower(*args) for k, (fn, args) in programs.items()}
-    with ThreadPoolExecutor(len(lowered)) as ex:
-        futs = {k: ex.submit(lw.compile) for k, lw in lowered.items()}
-        return {k: f.result() for k, f in futs.items()}
+class _Compiled(dict):
+    """{name: callable} over the JAX programs {name: (jitted fn, args)}:
+    each program is lowered and compiled at its first use, so a test waits
+    only for the programs it runs."""
+
+    def __init__(self, programs):
+        super().__init__()
+        self.programs = programs
+
+    def __missing__(self, name):
+        fn, args = self.programs[name]
+        self[name] = fn.lower(*args).compile()
+        return self[name]
 
 
 @pytest.fixture(scope="module")
@@ -236,7 +241,7 @@ def world(module_rng):
         jax_chemistry.get("5p10XGEX"), w["jindex"],
         jax_sharded.make_mesh(2, 2)), (codes, lens))
 
-    w["jax"] = _compiled(programs)
+    w["jax"] = _Compiled(programs)
     return w
 
 
