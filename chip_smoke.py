@@ -63,8 +63,8 @@ Phases, each of which must pass or the script exits non-zero:
                DP and the adapter scan from inside the fused step; then
                its unfused twin (fast=False), every artifact of the two
                outdirs equal (after gunzip, the BAM after BGZF), with one
-               line of both walls, steady_reads_per_s, phase_s, deferred
-               reads and the launches of both
+               line of both walls, phase_s, deferred reads and the
+               launches of both
   4. modes   — the same for the other three 5p10XGEX samples with their
                genomes (1022 and 1026 against panel_MT_trns.fa and
                MT_chr.fa, 97_6_CAR against CAR_CD28.fa), for 5p10XTCR on
@@ -87,8 +87,9 @@ Phases, each of which must pass or the script exits non-zero:
                gunzip, the BAM after BGZF), the golden met, the one-vs-all
                DP launched once per shard and chunk (k562: >= 4, slideseq:
                >= 2 x its unsharded launches) and the UMI rescore (k562);
-               the sharded match timed step by step (parallel/sharded.py
-               step_s: each step's host time and its wait on the card),
+               the sharded match's spans (match.tiers, match.dp,
+               match.verdicts: count and host seconds of each, from the
+               run statistics' span_totals),
                and k562 once more with the tier pass over each data block
                whole (one chunk where the default takes 6), held the same;
                the aten calls one call of each tier function dispatches,
@@ -96,12 +97,12 @@ Phases, each of which must pass or the script exits non-zero:
   bench   — the bench.py _cli_bench shape: K562 tiled to 20,000 reads,
                the RUNX1 panel, the full 737K list, no genome, batch 2048,
                fused and unfused in turns (fused, unfused, unfused, fused),
-               each pair's artifacts equal; wall, reads/s and
-               steady_reads_per_s of each; then one fused run under
+               each pair's artifacts equal; wall and reads/s of each;
+               then one fused run under
                torch.profiler for the card's kernel time; then one fused
                run with the Python fastq parser forced, its artifacts
                equal to the first fused run's (the native reader's), its
-               wall, phase_s.read and steady_reads_per_s beside theirs
+               wall and phase_s.read beside theirs
   scale   — nanoranger_torch/tools/scale_bench.py's synthesize() and
                measure() at the full 1,000,000-row product list, the
                transcriptome and the reads cut (SCALE_CUT: 32 Mb over 800
@@ -1207,8 +1208,8 @@ def run_mode(name, mode, infile, panel, genome, wl, out, card, golden,
              expect, shards=None, fast=None, batch_size=2048, parser=False):
     """One run of run_pipeline on the card with the launch counts set to 0
     just before and read just after; `shards` is (wl_shards, data_shards),
-    and a sharded run times the steps of its match (which synchronises the
-    card at each step's end); fast=False takes the unfused path;
+    and a sharded run reports its match's spans from the run statistics;
+    fast=False takes the unfused path;
     parser=True forces the Python fastq parser. The launches made inside
     the fused step's calls are counted apart (`step_launches`), and so are
     the files each reader opened (`reader`): a run that fell back to the
@@ -1259,7 +1260,6 @@ def run_mode(name, mode, infile, panel, genome, wl, out, card, golden,
         CountingReader
     fastq.iter_fastq = counting_iter_fastq
     wl_shards, data_shards = shards or (1, 1)
-    sharded.step_s = {} if shards else None
     try:
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -1271,16 +1271,15 @@ def run_mode(name, mode, infile, panel, genome, wl, out, card, golden,
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(kernels.launches)
-        steps = sharded.step_s
     finally:
         barcode.verify_all = sharded.verify_all = verify_all
         pipeline.build_cli_step = build_cli_step
         native_lib.NativeFastqReader = native_reader
         fastq.iter_fastq = iter_fastq
-        sharded.step_s = None
     got = collect(out, "t", mode) if golden is not None else {}
     with open(os.path.join(out, "t_runstats.json")) as f:
-        stages = json.load(f)["stages"]
+        runstats = json.load(f)
+    stages = runstats["stages"]
     n_reads = stages[0]["reads"]
     line = {"phase": "sharded" if shards else "main", "run": name,
             "mode": mode, "card": card, "wl_shards": wl_shards,
@@ -1288,7 +1287,6 @@ def run_mode(name, mode, infile, panel, genome, wl, out, card, golden,
             "path": "fused" if "phase_s" in stages[0] else "unfused",
             "wall_s": round(wall, 3), "reads": n_reads,
             "reads_per_s": round(n_reads / wall, 1),
-            "steady_reads_per_s": stages[0].get("steady_reads_per_s"),
             "deferred_reads": stages[0].get("deferred_reads", 0),
             "phase_s": stages[0].get("phase_s"), "launches": launches,
             "step_launches": in_step, "reader": readers}
@@ -1296,8 +1294,10 @@ def run_mode(name, mode, infile, panel, genome, wl, out, card, golden,
     emit({**line,
           "verify_rows_per_launch": verify_rows, "counts": got,
           **({"tier_chunk": sharded.TIER_CHUNK,
-              "match_steps_host_wait_s": {k: [round(h, 4), round(w, 4)]
-                                          for k, (h, w) in steps.items()}}
+              "match_spans_n_s": {
+                  k: [v["n"], round(v["s"], 4)]
+                  for k, v in runstats["span_totals"].items()
+                  if k.startswith("match.")}}
              if shards else {}),
           "stages": [{k: s[k] for k in ("stage", "seconds", "whitelist_s",
                                         "shard_tables_s", "records",
@@ -1329,7 +1329,7 @@ def twin_check(name, fused_out, unfused_out, card, in_step=("chain",)):
     """The fused run against its unfused twin: every artifact's digest
     equal, and the kernels `in_step` launched from inside the fused step.
     Emits one line with both runs' walls, the fused run's
-    steady_reads_per_s, phase_s and deferred reads, and the K1-K5 launches
+    phase_s and deferred reads, and the K1-K5 launches
     of both. Returns a failure or None."""
     f, u = RUN_LINES[name], RUN_LINES[name + "_unfused"]
     got, want = artifact_digests(fused_out), artifact_digests(unfused_out)
@@ -1340,7 +1340,6 @@ def twin_check(name, fused_out, unfused_out, card, in_step=("chain",)):
           "fused_wall_s": f["wall_s"], "unfused_wall_s": u["wall_s"],
           "fused_reads_per_s": f["reads_per_s"],
           "unfused_reads_per_s": u["reads_per_s"],
-          "steady_reads_per_s": f["steady_reads_per_s"],
           "phase_s": f["phase_s"], "deferred_reads": f["deferred_reads"],
           "fused_launches": {k: f["launches"][k] for k in k15},
           "fused_step_launches": {k: f["step_launches"][k] for k in k15},
@@ -1953,7 +1952,7 @@ def main() -> int:
               "batch_size": 2048, "runs": [
                   {k: RUN_LINES[nm][k] for k in (
                       "run", "path", "wall_s", "reads_per_s",
-                      "steady_reads_per_s", "deferred_reads", "phase_s")}
+                      "deferred_reads", "phase_s")}
                   for nm, _ in bench]})
         emit({"phase": "cli_bench_device_time", "card": card,
               **device_time(tiled, tmp())})
@@ -1973,8 +1972,6 @@ def main() -> int:
               "runs": [{"run": r, "path": RUN_LINES[r]["path"],
                         "reader": RUN_LINES[r]["reader"],
                         "wall_s": RUN_LINES[r]["wall_s"],
-                        "steady_reads_per_s":
-                            RUN_LINES[r]["steady_reads_per_s"],
                         "read_s": (RUN_LINES[r]["phase_s"] or {}).get(
                             "read")}
                        for r in (bench[0][0], bench[3][0], nm)],

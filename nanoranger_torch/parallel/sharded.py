@@ -24,7 +24,9 @@ share one device. Placement changes no output. On a CUDA cell the shard
 runs the one-vs-all DP kernel (csrc/verify.cu) once per chunk and the
 winner's banded UMI rescore (csrc/sw_banded.cu) on its owning shard; on a
 CPU cell the DP's host twin (or its plain version) and the rescore over the
-full padded row.
+full padded row. The match's steps are spans under the single-device
+matcher's names (trace.py): match.tiers, match.dp (the rescore included)
+and match.verdicts (the gather included).
 
 build_sharded_align is the data-parallel front of the entry's dry
 run (entry.dryrun_multichip): each data block is seeded, chained and
@@ -33,12 +35,12 @@ adapter-scanned on its own cell, and the candidates gathered in read order.
 
 from __future__ import annotations
 
-import contextlib
 import time
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..align.aligner import prepare_index_arrays, seed_and_chain
 from ..chemistry import BarcodeMatchSpec
 from ..io import whitelist as wl
@@ -57,29 +59,6 @@ BIGI = 1 << 30
 # int64 window keys a row, so a chunk bounds the pass's memory, as in
 # BarcodeMatcher's second pass
 TIER_CHUNK = BarcodeMatcher.PASS2_CHUNK
-
-# seconds of each step of the sharded match, summed over calls, while a
-# caller holds a dict here (chip_smoke.py's sharded runs): step -> [host,
-# wait], the host's time issuing the step and the time then spent waiting
-# for the step's devices. Off (None), nothing is timed or synchronised.
-step_s: dict | None = None
-
-
-@contextlib.contextmanager
-def _step(name: str, devices):
-    if step_s is None:
-        yield
-        return
-    t0 = time.perf_counter()
-    yield
-    t1 = time.perf_counter()
-    for dev in devices:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-    acc = step_s.setdefault(name, [0.0, 0.0])
-    acc[0] += t1 - t0
-    acc[1] += time.perf_counter() - t1
-
 
 def log(msg: str):
     print(f"[nanoranger-torch] {msg}", flush=True)
@@ -267,7 +246,6 @@ def build_sharded_match(swl: ShardedWhitelist, mesh: Mesh):
     bl = spec.bc_len
     n_data, n_wl = mesh.shape
     n_real = [int(x) for x in swl.n_real]
-    devs = mesh.devices
 
     def gather(xs, home):
         """(n_wl, n) stack of the shards' values on the block's home cell."""
@@ -277,25 +255,23 @@ def build_sharded_match(swl: ShardedWhitelist, mesh: Mesh):
         """Global tier summaries of one row chunk (its copies per device in
         `on`): each shard's tier hits and boundary flags, merged."""
         fwd_l, rc_l, fl_l = [], [], []
-        with _step("tier_hits", devs):
-            for w in range(n_wl):
-                q, qlen = on[mesh.cell(d, w)]
-                a = arrs[d][w]
-                fwd_l.append(tier_hits(q, qlen, a["ex_keys"], a["ex_idx"],
-                                       bl, spec.pad_left, spec.pad_right))
-                rc_l.append(tier_hits(q, qlen, a["rc_ex_keys"],
-                                      a["rc_ex_idx"], bl, spec.pad_right,
-                                      spec.pad_left, any_only=True))
-                # boundary-truncated structures bypass the tier summaries
-                # and resolve through the DP (free core entry/exit at the
-                # query edges, stages/barcode.boundary_flags)
-                fl = boundary_flags(q, qlen, a["bnd"][:4], bl,
-                                    spec.pad_left, spec.pad_right)
-                fl_l.append(fl | boundary_flags(q, qlen, a["bnd"][4:], bl,
-                                                spec.pad_right,
-                                                spec.pad_left))
-        with _step("tier_merge", devs):
-            return merge_tiers(fwd_l, rc_l, fl_l, on[home][1], home)
+        for w in range(n_wl):
+            q, qlen = on[mesh.cell(d, w)]
+            a = arrs[d][w]
+            fwd_l.append(tier_hits(q, qlen, a["ex_keys"], a["ex_idx"],
+                                   bl, spec.pad_left, spec.pad_right))
+            rc_l.append(tier_hits(q, qlen, a["rc_ex_keys"],
+                                  a["rc_ex_idx"], bl, spec.pad_right,
+                                  spec.pad_left, any_only=True))
+            # boundary-truncated structures bypass the tier summaries
+            # and resolve through the DP (free core entry/exit at the
+            # query edges, stages/barcode.boundary_flags)
+            fl = boundary_flags(q, qlen, a["bnd"][:4], bl,
+                                spec.pad_left, spec.pad_right)
+            fl_l.append(fl | boundary_flags(q, qlen, a["bnd"][4:], bl,
+                                            spec.pad_right,
+                                            spec.pad_left))
+        return merge_tiers(fwd_l, rc_l, fl_l, on[home][1], home)
 
     def merge_tiers(fwd_l, rc_l, fl_l, qlen, home):
         """any = OR over shards; multi = any shard multi OR hits in >= 2
@@ -327,34 +303,31 @@ def build_sharded_match(swl: ShardedWhitelist, mesh: Mesh):
         best fwd/rc MAX, ties SUM at the global best, smallest global index
         among the best shards; the winner's UMI rescored on its owner."""
         fbs, rbs, fis, fts, qs_w = [], [], [], [], []
-        with _step("dp", devs):
-            for w in range(n_wl):
-                c = mesh.cell(d, w)
-                q, qlen = on[c]
-                rows = rows_on[c]
-                qs = q[rows].contiguous()
-                qls = qlen[rows]
-                n = qs.shape[0]
-                best, idx, ties = verify_all(
-                    torch.cat([qs, revcomp_rows(qs, qls)]).contiguous(),
-                    torch.cat([qls, qls]), arrs[d][w]["coreT"], n_real[w],
-                    spec.pad_left, spec.pad_right)
-                fbs.append(best[:n])
-                rbs.append(best[n:])
-                fis.append(torch.where(idx[:n] >= 0, idx[:n] + w * per,
-                                       BIGI))
-                fts.append(ties[:n])
-                qs_w.append((qs, qls))
-        with _step("dp_merge", devs):
-            fbg = gather(fbs, home)
-            fb = fbg.max(dim=0).values
-            at_best = fbg == fb[None]
-            ties = torch.where(at_best, gather(fts, home), 0).sum(dim=0)
-            fi = torch.where(at_best, gather(fis, home),
-                             BIGI).min(dim=0).values
-            rb = gather(rbs, home).max(dim=0).values
-        with _step("rescore", devs):
-            qpos, uval = rescore(d, qs_w, fi, arrs, home)
+        for w in range(n_wl):
+            c = mesh.cell(d, w)
+            q, qlen = on[c]
+            rows = rows_on[c]
+            qs = q[rows].contiguous()
+            qls = qlen[rows]
+            n = qs.shape[0]
+            best, idx, ties = verify_all(
+                torch.cat([qs, revcomp_rows(qs, qls)]).contiguous(),
+                torch.cat([qls, qls]), arrs[d][w]["coreT"], n_real[w],
+                spec.pad_left, spec.pad_right)
+            fbs.append(best[:n])
+            rbs.append(best[n:])
+            fis.append(torch.where(idx[:n] >= 0, idx[:n] + w * per,
+                                   BIGI))
+            fts.append(ties[:n])
+            qs_w.append((qs, qls))
+        fbg = gather(fbs, home)
+        fb = fbg.max(dim=0).values
+        at_best = fbg == fb[None]
+        ties = torch.where(at_best, gather(fts, home), 0).sum(dim=0)
+        fi = torch.where(at_best, gather(fis, home),
+                         BIGI).min(dim=0).values
+        rb = gather(rbs, home).max(dim=0).values
+        qpos, uval = rescore(d, qs_w, fi, arrs, home)
         return (fb, torch.where(fi < BIGI, fi, -1), ties.to(torch.int32), rb,
                 qpos, uval)
 
@@ -397,12 +370,13 @@ def build_sharded_match(swl: ShardedWhitelist, mesh: Mesh):
         tiers = None
         tier_hit = torch.zeros(B, dtype=torch.bool, device=home)
         if swl.exact is not None and B:
-            parts = []
-            for lo in range(0, B, TIER_CHUNK):
-                sub = {c: (x[lo:lo + TIER_CHUNK], y[lo:lo + TIER_CHUNK])
-                       for c, (x, y) in on.items()}
-                parts.append(tier_pass(d, sub, arrs, home))
-            with _step("tier_merge", devs):
+            trace.count("match.rows_full_class", B)
+            with trace.span("match.tiers"):
+                parts = []
+                for lo in range(0, B, TIER_CHUNK):
+                    sub = {c: (x[lo:lo + TIER_CHUNK], y[lo:lo + TIER_CHUNK])
+                           for c, (x, y) in on.items()}
+                    parts.append(tier_pass(d, sub, arrs, home))
                 fwd = [tuple(torch.cat([p[0][t][k] for p in parts])
                              for k in range(4)) for t in range(N_TIERS)]
                 rc = [torch.cat([p[1][t] for p in parts])
@@ -412,23 +386,24 @@ def build_sharded_match(swl: ShardedWhitelist, mesh: Mesh):
 
         # exhaustive DP tail over the rows with no tier structure, chunked
         need = (qlh > 0) & ~tier_hit
-        with _step("dp", devs):
+        with trace.span("match.dp"):
             flagged = torch.nonzero(need)[:, 0]
-        fb = torch.full((B,), NEG, dtype=i32, device=home)
-        fidx = torch.full((B,), -1, dtype=i32, device=home)
-        fties = torch.zeros(B, dtype=i32, device=home)
-        rb = torch.full((B,), NEG, dtype=i32, device=home)
-        fqpos = torch.full((B,), -1, dtype=i32, device=home)
-        fuval = torch.zeros(B, dtype=torch.bool, device=home)
-        flagged_on = {c: flagged.to(c) for c in on}
-        for lo in range(0, flagged.numel(), swl.dp_chunk):
-            rows = flagged[lo:lo + swl.dp_chunk]
-            rows_on = {c: f[lo:lo + swl.dp_chunk]
-                       for c, f in flagged_on.items()}
-            (fb[rows], fidx[rows], fties[rows], rb[rows], fqpos[rows],
-             fuval[rows]) = dp_chunk(d, rows_on, on, arrs, home)
+            trace.count("match.rows_dp", flagged.numel())
+            fb = torch.full((B,), NEG, dtype=i32, device=home)
+            fidx = torch.full((B,), -1, dtype=i32, device=home)
+            fties = torch.zeros(B, dtype=i32, device=home)
+            rb = torch.full((B,), NEG, dtype=i32, device=home)
+            fqpos = torch.full((B,), -1, dtype=i32, device=home)
+            fuval = torch.zeros(B, dtype=torch.bool, device=home)
+            flagged_on = {c: flagged.to(c) for c in on}
+            for lo in range(0, flagged.numel(), swl.dp_chunk):
+                rows = flagged[lo:lo + swl.dp_chunk]
+                rows_on = {c: f[lo:lo + swl.dp_chunk]
+                           for c, f in flagged_on.items()}
+                (fb[rows], fidx[rows], fties[rows], rb[rows], fqpos[rows],
+                 fuval[rows]) = dp_chunk(d, rows_on, on, arrs, home)
 
-        with _step("verdicts", devs):
+        with trace.span("match.verdicts"):
             bc, score, status, umi, _ = combine_verdicts(
                 qh, qlh, spec, m, tiers,
                 (need, fb, fidx, fties, rb, fqpos, fuval))
@@ -449,7 +424,7 @@ def build_sharded_match(swl: ShardedWhitelist, mesh: Mesh):
         out = [block(d, q[d * nb:(d + 1) * nb], qlen[d * nb:(d + 1) * nb],
                      arrs) for d in range(n_data)]
         root = mesh.cell(0, 0)
-        with _step("gather", devs):
+        with trace.span("match.verdicts"):
             cat = lambda k: torch.cat([o[k].to(root) for o in out])
             counts = sum(o[4].to(root) for o in out)
             return cat(0), cat(1), cat(2), cat(3), counts
@@ -479,6 +454,7 @@ class ShardedMatcher:
 
     def match(self, q: np.ndarray, qlen: np.ndarray) -> dict:
         n = q.shape[0]
+        trace.count("match.rows", n)
         n_pad = -(-n // self.mesh.shape[0]) * self.mesh.shape[0] - n
         if n_pad:
             q = np.pad(q, ((0, n_pad), (0, 0)))

@@ -63,7 +63,7 @@ import numpy as np
 import pandas as pd
 import torch
 
-from . import chemistry
+from . import chemistry, trace
 from .align.aligner import PanelAligner, extract_records
 from .align.index import PanelIndex
 from .io import fastq, whitelist
@@ -128,19 +128,23 @@ def resolve_device(device) -> torch.device:
 
 
 class Telemetry:
-    """Per-stage run telemetry, written atomically as
-    {sample}_runstats.json at pipeline exit."""
+    """The run statistics, a view of the run's trace (trace.py): one row
+    per stage, made from the stage's span, then the trace's spans, their
+    totals and the counters. Written atomically as {sample}_runstats.json
+    at pipeline exit."""
 
-    def __init__(self, mode: str, infile: str, device: torch.device):
-        self.t0 = time.time()
+    def __init__(self, mode: str, infile: str, device: torch.device,
+                 run: trace.Run):
+        self.run = run
         self.doc = {"mode": mode, "infile": infile, "device": str(device),
                     "stages": []}
         if device.type == "cuda":
             self.doc["device_name"] = torch.cuda.get_device_name(device)
 
-    def stage(self, name: str, seconds: float, reads: int | None = None,
-              **extra):
-        row = {"stage": name, "seconds": round(seconds, 3)}
+    def stage(self, sp: trace.Span, reads: int | None = None, **extra):
+        """The row of the stage whose span `sp` has closed."""
+        seconds = sp.seconds
+        row = {"stage": sp.name, "seconds": round(seconds, 3)}
         if reads is not None and reads >= 0:
             row["reads"] = int(reads)
             if seconds > 0:
@@ -150,7 +154,9 @@ class Telemetry:
         self.doc["stages"].append(row)
 
     def write(self, outdir: str, sample: str):
-        self.doc["total_seconds"] = round(time.time() - self.t0, 3)
+        self.doc["total_seconds"] = round(
+            (time.time_ns() - self.run.t0_ns) / 1e9, 3)
+        self.doc.update(self.run.doc())
         path = f"{outdir}/{sample}_runstats.json"
         tmp = path + ".tmp"
         with open(tmp, "w") as f:
@@ -226,14 +232,14 @@ class DeconRun:
                 f"({time.time() - t0:.1f}s)")
             return
 
-        t_index = time.time()
-        self.index = PanelIndex.from_fasta(trns_ref)
+        with trace.span("decon.index") as sp:
+            self.index = PanelIndex.from_fasta(trns_ref)
         if fast is None:
             fast = (data_shards <= 1 and
                     os.environ.get("NANORANGER_NO_FAST", "") != "1")
         if fast:
             self._run_fast(spec, infile, sample, torch.device(device),
-                           batch_size, max_len, matcher, t0, t_index)
+                           batch_size, max_len, matcher, t0, sp.seconds)
             return
         # batch i chains on data cell i % data_shards, the cells laid over
         # the devices round-robin
@@ -288,7 +294,7 @@ class DeconRun:
             f"({time.time() - t0:.1f}s)")
 
     def _run_fast(self, spec, infile, sample, dev, batch_size, max_len,
-                  matcher, t0, t_index):
+                  matcher, t0, index_s):
         """Fused path: one step call per batch (stages/cli_step.py) on
         `dev`; the host assembles the artifacts from the downloaded slot
         arrays.
@@ -318,20 +324,27 @@ class DeconRun:
         The JAX package loads its compiled step per bucket ahead of time
         on a thread (NANORANGER_AOT), and on an accelerator runs the
         unfused fallback once on the first batch so that the fallback's
-        compiles land before the steady-state marker. The port has neither:
-        the kernels build at first use (kernels.py), eager torch compiles
-        nothing, and the fallback runs the step's own kernels and torch
-        ops, and its aligner takes the step's index tensors (a second copy
-        of a whole-transcriptome index would cost seconds and gigabytes).
-        The marker (steady_reads_per_s) re-arms whenever a bucket
-        dispatches for the first time."""
+        compiles land early. The port has neither: the kernels build at
+        first use (kernels.py), eager torch compiles nothing, and the
+        fallback runs the step's own kernels and torch ops, and its aligner
+        takes the step's index tensors (a second copy of a
+        whole-transcriptome index would cost seconds and gigabytes).
+
+        Spans (trace.py): decon.index (the panel index, then the step's
+        tensors of it: index_s), decon.read (fastq stream + encode),
+        decon.step.issue (the step calls: the host issues the card's work;
+        eager torch waits only at the extension's re-round test),
+        decon.step.download (the wait at download), decon.assemble (host
+        artifact assembly), decon.slow (unfused reruns of deferred reads);
+        phase_s sums them, its step being issue + download."""
         cli_matcher = matcher if _matcher_in_step(dev) else None
-        step, tables = build_cli_step(spec, self.index, matcher=cli_matcher,
-                                      device=dev)
+        with trace.span("decon.index") as sp:
+            step, tables = build_cli_step(spec, self.index,
+                                          matcher=cli_matcher, device=dev)
         index_arrays = tuple(tables[k] for k in
                              ("prefix_start", "prefix_count", "windows"))
         self.index_bytes = sum(t.nbytes for t in index_arrays)
-        self.index_s = time.time() - t_index
+        self.index_s = index_s + sp.seconds
         self._fallback_aligner = None
         self._index_arrays = index_arrays
         self._dev = dev
@@ -340,13 +353,6 @@ class DeconRun:
         BUCKETS_ARR = np.asarray(BUCKETS)
         do_match = cli_matcher is not None and spec.barcode is not None
         umi_len = spec.barcode.umi_len if do_match else 0
-        # per-phase wall: read = fastq stream + encode, step = the step
-        # calls (the host issues the card's work; eager torch waits only
-        # at the extension's re-round test) and the wait at download,
-        # assemble = host artifact assembly, slow = unfused reruns of
-        # deferred reads
-        ph = self.phase_s = {"read": 0.0, "step": 0.0, "assemble": 0.0,
-                             "slow": 0.0}
         mbc, mscore, mstatus, mumi = [], [], [], []
         n_reads = n_sub = 0
         fsub = fastq.FastqWriter(self.sub_path)
@@ -418,41 +424,34 @@ class DeconRun:
                     lr[k] = b.lengths[i]
                     nr.append(b.names[i])
                     qr.append(b.quals[i])
-                tslow = time.time()
                 g: dict = {}
-                for base in range(0, n, DEFER_CAP):
-                    e = min(base + DEFER_CAP, n)
-                    gi = self._slow_groups(spec, sample, cr[base:e],
-                                           lr[base:e], nr[base:e],
-                                           qr[base:e])
-                    for k, v in gi.items():
-                        g[base + k] = v
-                ph["slow"] += time.time() - tslow
+                with trace.span("decon.slow"):
+                    for base in range(0, n, DEFER_CAP):
+                        e = min(base + DEFER_CAP, n)
+                        gi = self._slow_groups(spec, sample, cr[base:e],
+                                               lr[base:e], nr[base:e],
+                                               qr[base:e])
+                        for k, v in gi.items():
+                            g[base + k] = v
                 for k, (bi, i) in enumerate(rows):
                     groups_all[(bi, i)] = g.get(k, {})
-            tasm = time.time()
-            for bi, (batch, seqs, _n, out) in enumerate(buffer):
-                asm = assemble_batch(
-                    spec, out, batch.codes, batch.lengths, batch.names,
-                    batch.quals, self.index.names, sample,
-                    slow_fallback=lambda didx, bi=bi: {
-                        int(i): groups_all.get((bi, int(i)), {})
-                        for i in didx})
-                emit(asm, seqs)
-            ph["assemble"] += time.time() - tasm
+            with trace.span("decon.assemble"):
+                for bi, (batch, seqs, _n, out) in enumerate(buffer):
+                    asm = assemble_batch(
+                        spec, out, batch.codes, batch.lengths, batch.names,
+                        batch.quals, self.index.names, sample,
+                        slow_fallback=lambda didx, bi=bi: {
+                            int(i): groups_all.get((bi, int(i)), {})
+                            for i in didx})
+                    emit(asm, seqs)
             buffer.clear()
             buf_defers = 0
-
-        self._t_steady0 = None
-        self._reads_at_steady0 = 0
-        self._steady_rearm = False
 
         def drain():
             nonlocal n_reads, buf_defers
             batch, seqs, n_real, out_dev = pending.popleft()
-            tget = time.time()
-            out = {k: v.cpu().numpy() for k, v in out_dev.items()}
-            ph["step"] += time.time() - tget
+            with trace.span("decon.step.download"):
+                out = {k: v.cpu().numpy() for k, v in out_dev.items()}
             n_reads += n_real
             nd = int(out["defer"].sum())
             buffer.append((batch, seqs, n_real, out))
@@ -460,12 +459,6 @@ class DeconRun:
             if buf_defers == 0 or len(buffer) >= FLUSH_BATCHES or \
                     buf_defers >= DEFER_CAP:
                 flush()
-            if self._t_steady0 is None or self._steady_rearm:
-                # (re)arm the steady marker: the one-time costs of every
-                # bucket dispatched so far have now been paid
-                self._t_steady0 = time.time()
-                self._reads_at_steady0 = n_reads
-                self._steady_rearm = False
 
         def _new_acc(Lb):
             return {"codes": np.full((batch_size, Lb), PAD, np.int8),
@@ -475,19 +468,16 @@ class DeconRun:
                     "seq": np.full(batch_size, -1, np.int64), "n": 0}
 
         acc = {Lb: _new_acc(Lb) for Lb in BUCKETS}
-        buckets_seen: set = set()
 
         def dispatch(Lb):
             a = acc[Lb]
             n = a["n"]
             if n == 0:
                 return
-            if Lb not in buckets_seen:
-                buckets_seen.add(Lb)
-                self._steady_rearm = True   # a new bucket's first batch
-            tstep = time.time()
-            out_dev = step(a["codes"][:n], a["lengths"][:n], tables)
-            ph["step"] += time.time() - tstep
+            trace.count(f"decon.batches.L{Lb}")
+            trace.count(f"decon.reads.L{Lb}", n)
+            with trace.span("decon.step.issue"):
+                out_dev = step(a["codes"][:n], a["lengths"][:n], tables)
             pending.append((fastq.ReadBatch(a["codes"][:n], a["lengths"][:n],
                                             a["names"][:n], a["quals"][:n]),
                             a["seq"][:n], n, out_dev))
@@ -498,9 +488,8 @@ class DeconRun:
         it = fastq.iter_batches(infile, batch_size, max_len=max_len)
         in_batches = next_seq = 0
         while True:
-            tread = time.time()
-            batch = next(it, None)
-            ph["read"] += time.time() - tread
+            with trace.span("decon.read"):
+                batch = next(it, None)
             if batch is None:
                 break
             w = batch.codes.shape[1]
@@ -565,12 +554,14 @@ class DeconRun:
                 "umi": umi, "pending": pend}
         self.n_reads = n_reads
         self.n_sub = n_sub
-        self.steady_reads_per_s = None
-        if self._t_steady0 and n_reads > self._reads_at_steady0:
-            dt = time.time() - self._t_steady0
-            if dt > 0:
-                self.steady_reads_per_s = round(
-                    (n_reads - self._reads_at_steady0) / dt, 1)
+        trace.count("decon.deferred_reads", self.n_deferred)
+        tr = trace.active()
+        if tr is not None:
+            sec = tr.seconds
+            self.phase_s = {
+                "read": sec("decon.read"),
+                "step": sec("decon.step.issue") + sec("decon.step.download"),
+                "assemble": sec("decon.assemble"), "slow": sec("decon.slow")}
         log(f"align+decon (fused): {n_reads} reads → {n_sub} subreads, "
             f"{len(self.cands)} BC-UMI candidates"
             + (f", {self.n_deferred} reads via the unfused path"
@@ -738,7 +729,10 @@ def match_barcodes(spec, bcs_array, cands, outdir, sample, device,
                 _write_score_hist(res, outdir, sample)
             return df, res
     t0 = time.time()
-    m = matcher or _matcher(bcs_array, spec, device, wl_shards, data_shards)
+    m = matcher
+    if m is None:
+        with trace.span("whitelist.tables"):
+            m = _matcher(bcs_array, spec, device, wl_shards, data_shards)
     if isinstance(m, ShardedMatcher):
         n_data, n_wl = m.mesh.shape
         log(f"whitelist match on a {n_data}x{n_wl} (data x wl) device mesh "
@@ -814,9 +808,10 @@ def genome_stage(spec, outdir, sample, genome_ref, tag_map, device,
     and a k-way heap merge writes the BAM. Peak memory is one batch of
     records plus the merge heads.
 
-    Returns the record count and the seconds of its parts: index build,
-    alignment (splice chain DP on the device, records, exon blocks), the
-    banded DP and CIGARs of the exons, and the merge into the BAM."""
+    Returns the record count and the seconds of its parts, the spans
+    genome.index (index build), genome.align (splice chain DP on the
+    device, records, exon blocks), genome.cigar (the banded DP and CIGARs
+    of the exons) and genome.write (the merge into the BAM)."""
     done = [f"{outdir}/{sample}_genome_tagged.bam",
             f"{outdir}/{sample}_genome_tagged.bam.bai",
             f"{outdir}/{sample}_trns_ct.csv"]
@@ -824,9 +819,10 @@ def genome_stage(spec, outdir, sample, genome_ref, tag_map, device,
         log("resume: tagged genome BAM present, skipping genome stage")
         return -1, {}
     t0 = time.time()
-    gindex = PanelIndex.from_fasta(genome_ref)
-    galigner = PanelAligner(gindex, device, preset="splice")
-    parts = {"index_s": time.time() - t0, "align_s": 0.0, "cigar_s": 0.0}
+    with trace.span("genome.index") as sp:
+        gindex = PanelIndex.from_fasta(genome_ref)
+        galigner = PanelAligner(gindex, device, preset="splice")
+    parts = {"index_s": sp.seconds, "align_s": 0.0, "cigar_s": 0.0}
     sub_path = f"{outdir}/{sample}_deconcat.fastq.gz"
     cig_re = re.compile(r"(\d+)([=XIDN])")
     spills: list = []
@@ -881,24 +877,25 @@ def genome_stage(spec, outdir, sample, genome_ref, tag_map, device,
 
     for bi, batch in enumerate(
             fastq.iter_batches(sub_path, batch_size, max_len=4096)):
-        ta = time.time()
-        rec, exons = galigner.align_with_exons(batch.codes, batch.lengths)
-        prim = rec.flag < 20                     # utils.py:812
-        rows = []
-        for r in np.where(prim)[0]:
-            i = int(rec.read_idx[r])
-            name = batch.names[i]
-            if name not in tag_map:
-                continue
-            rows.append((int(rec.ref_id[r]), int(rec.tstart[r]),
-                         int(rec.flag[r]), name, exons[r],
-                         batch.codes[i, :batch.lengths[i]].copy(),
-                         batch.quals[i], int(rec.mapq[r])))
-        rows.sort(key=lambda x: (x[0], x[1]))
-        tb = time.time()
-        done_rows = finish_rows(rows)
-        parts["align_s"] += tb - ta
-        parts["cigar_s"] += time.time() - tb
+        with trace.span("genome.align") as sp:
+            rec, exons = galigner.align_with_exons(batch.codes,
+                                                   batch.lengths)
+            prim = rec.flag < 20                     # utils.py:812
+            rows = []
+            for r in np.where(prim)[0]:
+                i = int(rec.read_idx[r])
+                name = batch.names[i]
+                if name not in tag_map:
+                    continue
+                rows.append((int(rec.ref_id[r]), int(rec.tstart[r]),
+                             int(rec.flag[r]), name, exons[r],
+                             batch.codes[i, :batch.lengths[i]].copy(),
+                             batch.quals[i], int(rec.mapq[r])))
+            rows.sort(key=lambda x: (x[0], x[1]))
+        parts["align_s"] += sp.seconds
+        with trace.span("genome.cigar") as sp:
+            done_rows = finish_rows(rows)
+        parts["cigar_s"] += sp.seconds
         n_rows += len(done_rows)
         path = os.path.join(tmpdir, f"spill_{bi}.pkl")
         with open(path, "wb") as f:
@@ -914,21 +911,23 @@ def genome_stage(spec, outdir, sample, genome_ref, tag_map, device,
                 except EOFError:
                     return
 
-    tw = time.time()
     bam_path = f"{outdir}/{sample}_genome_tagged.bam"
-    with BAMWriter(bam_path, gindex.names,
-                   [len(s) for s in gindex.seq_codes], index=True) as w:
-        merged = heapq.merge(*[read_spill(p) for p in spills],
-                             key=lambda row: (row[0], row[1]))
-        for (rid, ts, flag, name, cig, stored, squal, mq, tags) in merged:
-            w.write(name, flag, rid, ts, mq, cig, stored, squal, tags=tags)
-            all_trns.append(tags["XT"])
-    for p in spills:
-        os.unlink(p)
-    os.rmdir(tmpdir)
-    counting.trans_counts_table(all_trns).to_csv(
-        f"{outdir}/{sample}_trns_ct.csv", index=None)
-    parts["write_s"] = time.time() - tw
+    with trace.span("genome.write") as sp:
+        with BAMWriter(bam_path, gindex.names,
+                       [len(s) for s in gindex.seq_codes], index=True) as w:
+            merged = heapq.merge(*[read_spill(p) for p in spills],
+                                 key=lambda row: (row[0], row[1]))
+            for (rid, ts, flag, name, cig, stored, squal, mq, tags) in \
+                    merged:
+                w.write(name, flag, rid, ts, mq, cig, stored, squal,
+                        tags=tags)
+                all_trns.append(tags["XT"])
+        for p in spills:
+            os.unlink(p)
+        os.rmdir(tmpdir)
+        counting.trans_counts_table(all_trns).to_csv(
+            f"{outdir}/{sample}_trns_ct.csv", index=None)
+    parts["write_s"] = sp.seconds
     log(f"genome stage: {n_rows} tagged records → {bam_path} "
         f"(streamed {len(spills)}-spill merge, {time.time() - t0:.1f}s)")
     return n_rows, {k: round(v, 3) for k, v in parts.items()}
@@ -1019,7 +1018,16 @@ def run_pipeline(mode, infile, outdir, sample, trns_ref=None, genome_ref=None,
     """Run `mode` from the fastq to its artifacts on `device`. fast=None
     takes the fused per-batch step when data_shards <= 1 and
     NANORANGER_NO_FAST is not 1 (DeconRun); fast=False forces the unfused
-    path."""
+    path. The run is traced (trace.py) into {sample}_runstats.json."""
+    with trace.run():
+        _run_pipeline(mode, infile, outdir, sample, trns_ref, genome_ref,
+                      barcodes, xpecies, batch_size, force, wl_shards,
+                      data_shards, scrub, device, fast)
+
+
+def _run_pipeline(mode, infile, outdir, sample, trns_ref, genome_ref,
+                  barcodes, xpecies, batch_size, force, wl_shards,
+                  data_shards, scrub, device, fast):
     dev = resolve_device(device)
     spec = chemistry.get(mode)
     dflt = MODE_DEFAULTS[mode]
@@ -1030,36 +1038,42 @@ def run_pipeline(mode, infile, outdir, sample, trns_ref=None, genome_ref=None,
         barcodes = os.path.join(DATA_DIR, dflt[2])
     os.makedirs(outdir, exist_ok=True)
 
-    tele = Telemetry(mode, infile, dev)
-    ts = time.time()
-    # modes whose whitelist is known up front (everything but the
-    # data-driven 3p10XGEX) load it and build the matcher's tables first
-    # (over the mesh when sharded); a missing file is reported after decon,
-    # as the JAX package does
-    bcs = None
-    matcher = None
-    shard_tables_s = None
-    if mode not in ("RTX", "3p10XGEX"):
-        try:
-            bcs = _load_whitelist(barcodes, mode)
-        except SystemExit:
-            bcs = None
-        if bcs is not None and len(bcs):
-            matcher = _matcher(bcs, spec, dev, wl_shards, data_shards)
-        if isinstance(matcher, ShardedMatcher):
-            shard_tables_s = round(matcher.build_s, 3)
-    # the stage keeps the JAX package's bounds (whitelist tables included);
-    # their share rides along as whitelist_s
-    whitelist_s = round(time.time() - ts, 3)
-    # the fused step takes the unsharded matcher on its device (its
-    # exact-class pass); a mesh's matcher runs only after the stream
-    run = DeconRun(spec, infile, outdir, sample, trns_ref, dev, batch_size,
-                   force=force, data_shards=data_shards,
-                   matcher=matcher if isinstance(matcher, BarcodeMatcher)
-                   else None, fast=fast)
-    run.write_eds(outdir, sample)
+    tele = Telemetry(mode, infile, dev, trace.active())
+    with trace.span("align_decon") as st:
+        # modes whose whitelist is known up front (everything but the
+        # data-driven 3p10XGEX) load it and build the matcher's tables
+        # first (over the mesh when sharded); a missing file is reported
+        # after decon, as the JAX package does
+        bcs = None
+        matcher = None
+        shard_tables_s = None
+        wl_spans = []
+        if mode not in ("RTX", "3p10XGEX"):
+            with trace.span("whitelist.load") as sp:
+                try:
+                    bcs = _load_whitelist(barcodes, mode)
+                except SystemExit:
+                    bcs = None
+            wl_spans.append(sp)
+            if bcs is not None and len(bcs):
+                with trace.span("whitelist.tables") as sp:
+                    matcher = _matcher(bcs, spec, dev, wl_shards,
+                                       data_shards)
+                wl_spans.append(sp)
+            if isinstance(matcher, ShardedMatcher):
+                shard_tables_s = round(matcher.build_s, 3)
+        # the stage keeps the JAX package's bounds (whitelist tables
+        # included); their share rides along as whitelist_s
+        whitelist_s = round(sum(sp.seconds for sp in wl_spans), 3)
+        # the fused step takes the unsharded matcher on its device (its
+        # exact-class pass); a mesh's matcher runs only after the stream
+        run = DeconRun(spec, infile, outdir, sample, trns_ref, dev,
+                       batch_size, force=force, data_shards=data_shards,
+                       matcher=matcher if isinstance(matcher, BarcodeMatcher)
+                       else None, fast=fast)
+        run.write_eds(outdir, sample)
     phase_s = getattr(run, "phase_s", None)
-    tele.stage("align_decon", time.time() - ts, run.n_reads,
+    tele.stage(st, run.n_reads,
                subreads=run.n_sub, candidates=len(run.cands),
                resumed=run.resumed, whitelist_s=whitelist_s,
                shard_tables_s=shard_tables_s,
@@ -1067,15 +1081,14 @@ def run_pipeline(mode, infile, outdir, sample, trns_ref=None, genome_ref=None,
                index_bytes=run.index_bytes,
                index_s=(round(run.index_s, 3) if run.index_s is not None
                         else None),
-               steady_reads_per_s=getattr(run, "steady_reads_per_s", None),
                phase_s={k: round(v, 3) for k, v in phase_s.items()}
                if phase_s else None)
 
     if mode == "RTX":
-        ts = time.time()
-        _ensure_clonotypes(mode, run.sub_path, outdir, sample, trns_ref,
-                           xpecies, dev)
-        tele.stage("clonotypes", time.time() - ts)
+        with trace.span("clonotypes") as st:
+            _ensure_clonotypes(mode, run.sub_path, outdir, sample, trns_ref,
+                               xpecies, dev)
+        tele.stage(st)
         tele.write(outdir, sample)
         return
 
@@ -1089,82 +1102,92 @@ def run_pipeline(mode, infile, outdir, sample, trns_ref=None, genome_ref=None,
         with open(tmp, "w") as f:
             json.dump({k: int(v) for k, v in run.raw_counts.items()}, f)
         os.replace(tmp, f"{outdir}/{sample}_bc_count.json")
-        if barcodes and os.path.isfile(barcodes):
-            bcs = whitelist.data_driven(run.raw_counts, barcodes)
-        else:
-            log("WARNING: master whitelist missing; using observed "
-                "barcodes with count>20 (reference requires "
-                "3M-february-2018.txt.gz)")
-            bcs = np.asarray([b for b, c in run.raw_counts.items()
-                              if c > 20 and len(b) == 16 and "N" not in b
-                              and "." not in b])
+        with trace.span("whitelist.load"):
+            if barcodes and os.path.isfile(barcodes):
+                bcs = whitelist.data_driven(run.raw_counts, barcodes)
+            else:
+                log("WARNING: master whitelist missing; using observed "
+                    "barcodes with count>20 (reference requires "
+                    "3M-february-2018.txt.gz)")
+                bcs = np.asarray([b for b, c in run.raw_counts.items()
+                                  if c > 20 and len(b) == 16 and "N" not in b
+                                  and "." not in b])
     elif bcs is None:
-        bcs = _load_whitelist(barcodes, mode)
+        with trace.span("whitelist.load"):
+            bcs = _load_whitelist(barcodes, mode)
     if len(bcs) == 0:
         log("no whitelist barcodes — stopping after decon")
         tele.write(outdir, sample)
         return
 
-    ts = time.time()
-    df, res = match_barcodes(spec, bcs, run.cands, outdir, sample, dev,
-                             force=force, matcher=matcher,
-                             wl_shards=wl_shards, data_shards=data_shards,
-                             prematched=None if run.resumed else
-                             run.prematch)
-    tele.stage("barcode_match", time.time() - ts, len(run.cands),
+    with trace.span("barcode_match") as st:
+        df, res = match_barcodes(spec, bcs, run.cands, outdir, sample, dev,
+                                 force=force, matcher=matcher,
+                                 wl_shards=wl_shards,
+                                 data_shards=data_shards,
+                                 prematched=None if run.resumed else
+                                 run.prematch)
+    tele.stage(st, len(run.cands),
                accepted=int((df.status == ACCEPT).sum()),
                whitelist=int(len(bcs)))
 
-    ts = time.time()
     if mode == "5p10XGEX":
-        dedup_outputs(spec, df, res, outdir, sample)
-        tele.stage("dedup", time.time() - ts)
+        with trace.span("dedup") as st:
+            dedup_outputs(spec, df, res, outdir, sample)
+        tele.stage(st)
         if genome_ref and os.path.isfile(genome_ref):
-            ts = time.time()
-            n_bam, parts = genome_stage(spec, outdir, sample, genome_ref,
-                                        _tag_map_from_df(df), dev,
-                                        force=force)
-            tele.stage("genome_tag", time.time() - ts, records=n_bam,
-                       **parts)
+            with trace.span("genome_tag") as st:
+                n_bam, parts = genome_stage(spec, outdir, sample, genome_ref,
+                                            _tag_map_from_df(df), dev,
+                                            force=force)
+            tele.stage(st, records=n_bam, **parts)
     elif mode in ("5p10XTCR", "3p10XTCR_nuc"):
-        dedup_outputs(spec, df, res, outdir, sample, knee_umi_name="knee_UMI")
-        tele.stage("dedup", time.time() - ts)
-        ts = time.time()
-        if _ensure_clonotypes(mode, run.sub_path, outdir, sample, trns_ref,
-                              xpecies, dev):
-            _, cloneID = clone_stage.clone_filt_5p10X(sample, outdir)
-            acc = df[df.status == ACCEPT]
-            clone_stage.clone_bcumi_join(
-                cloneID, acc.name.tolist(), acc.bc.to_numpy(),
-                acc.umi.tolist(), f"{outdir}/{sample}_clone_bcumi.csv.gz")
-        tele.stage("clonotypes", time.time() - ts)
+        with trace.span("dedup") as st:
+            dedup_outputs(spec, df, res, outdir, sample,
+                          knee_umi_name="knee_UMI")
+        tele.stage(st)
+        with trace.span("clonotypes") as st:
+            if _ensure_clonotypes(mode, run.sub_path, outdir, sample,
+                                  trns_ref, xpecies, dev):
+                with trace.span("vdj.exports"):
+                    _, cloneID = clone_stage.clone_filt_5p10X(sample, outdir)
+                    acc = df[df.status == ACCEPT]
+                    clone_stage.clone_bcumi_join(
+                        cloneID, acc.name.tolist(), acc.bc.to_numpy(),
+                        acc.umi.tolist(),
+                        f"{outdir}/{sample}_clone_bcumi.csv.gz")
+        tele.stage(st)
     elif mode in ("3pXCR_slideseq", "3p10XTCR"):
-        if _ensure_clonotypes(mode, run.sub_path, outdir, sample, trns_ref,
-                              xpecies, dev):
-            _, cloneID = clone_stage.clone_filt_slideseq(sample, outdir)
-            acc = df[df.status == ACCEPT]
-            clone_stage.clone_bcumi_join(
-                cloneID, acc.name.tolist(), acc.bc.to_numpy(),
-                acc.umi.tolist(), f"{outdir}/{sample}_clone_bcumi.csv.gz",
-                clone_first=True)
-        tele.stage("clonotypes", time.time() - ts)
+        with trace.span("clonotypes") as st:
+            if _ensure_clonotypes(mode, run.sub_path, outdir, sample,
+                                  trns_ref, xpecies, dev):
+                with trace.span("vdj.exports"):
+                    _, cloneID = clone_stage.clone_filt_slideseq(sample,
+                                                                 outdir)
+                    acc = df[df.status == ACCEPT]
+                    clone_stage.clone_bcumi_join(
+                        cloneID, acc.name.tolist(), acc.bc.to_numpy(),
+                        acc.umi.tolist(),
+                        f"{outdir}/{sample}_clone_bcumi.csv.gz",
+                        clone_first=True)
+        tele.stage(st)
     elif mode == "3p10XGEX":
-        acc = df[df.status == ACCEPT]
-        umi_codes = res["umi"][(df.status == ACCEPT).to_numpy()]
-        trns = [n.split("/ccs_")[-1].split("_") for n in acc.name]
-        trns = ["_".join(t[3:]) if len(t) > 3 else "" for t in trns]
-        trns = [t.split("|")[-1].split("_")[0] if "|" in t else t
-                for t in trns]                          # utils.py:1483-1486
-        with gzip.open(f"{outdir}/{sample}_quads.json.gz", "wt") as f:
-            json.dump(counting.quads_dict(acc.bc.to_numpy(), umi_codes,
-                                          trns), f)
-        genes, cells, cnts = counting.count_matrix(
-            acc.bc.to_numpy(), umi_codes, np.asarray(trns, dtype=object))
-        counting.write_mtx(f"{outdir}/{sample}", genes, cells, cnts)
-        log(f"count matrix: {len(genes)} genes × {len(cells)} cells, "
-            f"{len(cnts)} nonzeros")
-        tele.stage("count_matrix", time.time() - ts,
-                   genes=len(genes), cells=len(cells))
+        with trace.span("count_matrix") as st:
+            acc = df[df.status == ACCEPT]
+            umi_codes = res["umi"][(df.status == ACCEPT).to_numpy()]
+            trns = [n.split("/ccs_")[-1].split("_") for n in acc.name]
+            trns = ["_".join(t[3:]) if len(t) > 3 else "" for t in trns]
+            trns = [t.split("|")[-1].split("_")[0] if "|" in t else t
+                    for t in trns]                      # utils.py:1483-1486
+            with gzip.open(f"{outdir}/{sample}_quads.json.gz", "wt") as f:
+                json.dump(counting.quads_dict(acc.bc.to_numpy(), umi_codes,
+                                              trns), f)
+            genes, cells, cnts = counting.count_matrix(
+                acc.bc.to_numpy(), umi_codes, np.asarray(trns, dtype=object))
+            counting.write_mtx(f"{outdir}/{sample}", genes, cells, cnts)
+            log(f"count matrix: {len(genes)} genes × {len(cells)} cells, "
+                f"{len(cnts)} nonzeros")
+        tele.stage(st, genes=len(genes), cells=len(cells))
     if scrub:
         # the only stage checkpoint is the assignment table — removing it
         # trades the resume capability for the reference's footprint

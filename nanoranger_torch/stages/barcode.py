@@ -29,7 +29,11 @@ pass over every row, full-class pass over the rows it left unresolved,
 exhaustive DP over the rows with no tier structure, then the verdicts —
 with the same code on CPU and CUDA: only the two DP kernels differ
 (Hopper kernels on CUDA, their plain versions on the CPU). Keys are looked
-up with torch.searchsorted in sorted tables.
+up with torch.searchsorted in sorted tables. Spans (trace.py): match.tiers
+(passes 1 and 2), match.dp (the DP pass), match.verdicts (the verdicts
+and their download); counters: match.rows (candidates matched),
+match.rows_full_class (rows of the full-class pass), match.rows_dp (rows
+of the DP).
 
 Status codes per candidate (what the reference observes from STAR's SAM):
   0 ACCEPT    — unique best, AS >= as_min, UMI intact
@@ -48,6 +52,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..chemistry import BarcodeMatchSpec
 from ..io import whitelist as wl
 from ..io.encode import COMPLEMENT, PAD, encode_batch
@@ -551,17 +556,19 @@ class BarcodeMatcher:
         B = q.shape[0]
         dev = q.device
         i32 = torch.int32
-        fb = torch.full((B,), NEG, dtype=i32, device=dev)
-        fidx = torch.full((B,), -1, dtype=i32, device=dev)
-        fties = torch.zeros(B, dtype=i32, device=dev)
-        rb = torch.full((B,), NEG, dtype=i32, device=dev)
-        fqpos = torch.full((B,), -1, dtype=i32, device=dev)
-        fuval = torch.zeros(B, dtype=torch.bool, device=dev)
-        flagged = torch.nonzero(need)[:, 0]
-        for base in range(0, len(flagged), self.DP_CHUNK):
-            rows = flagged[base:base + self.DP_CHUNK]
-            (fb[rows], fidx[rows], fties[rows], rb[rows], fqpos[rows],
-             fuval[rows]) = self._dp(q[rows].contiguous(), qlen[rows], t)
+        with trace.span("match.dp"):
+            fb = torch.full((B,), NEG, dtype=i32, device=dev)
+            fidx = torch.full((B,), -1, dtype=i32, device=dev)
+            fties = torch.zeros(B, dtype=i32, device=dev)
+            rb = torch.full((B,), NEG, dtype=i32, device=dev)
+            fqpos = torch.full((B,), -1, dtype=i32, device=dev)
+            fuval = torch.zeros(B, dtype=torch.bool, device=dev)
+            flagged = torch.nonzero(need)[:, 0]
+            trace.count("match.rows_dp", len(flagged))
+            for base in range(0, len(flagged), self.DP_CHUNK):
+                rows = flagged[base:base + self.DP_CHUNK]
+                (fb[rows], fidx[rows], fties[rows], rb[rows], fqpos[rows],
+                 fuval[rows]) = self._dp(q[rows].contiguous(), qlen[rows], t)
         return fb, fidx, fties, rb, fqpos, fuval
 
     def match(self, q: np.ndarray, qlen: np.ndarray) -> dict:
@@ -571,31 +578,36 @@ class BarcodeMatcher:
         qd = torch.from_numpy(np.ascontiguousarray(q, np.int8)).to(dev)
         qld = torch.from_numpy(np.asarray(qlen, np.int32)).to(dev)
         B = qd.shape[0]
+        trace.count("match.rows", B)
         need = torch.zeros(B, dtype=torch.bool, device=dev)
 
         tiers = None
         if "ex_keys" in self.tables:
-            # pass 1: exact-class tier-m summaries of every row
-            fwd, rc, _ = self._tiers(qd, qld, classes="exact")
-            (a16, m16, e16, p16), r16 = fwd[0], rc[0]
-            tA = torch.zeros((N_TIERS, B), dtype=torch.bool, device=dev)
-            tM = torch.zeros_like(tA)
-            tR = torch.zeros_like(tA)
-            tE = torch.full((N_TIERS, B), -1, dtype=torch.int64, device=dev)
-            tQ = torch.full_like(tE, -1)
-            tA[0], tM[0], tE[0], tQ[0], tR[0] = a16, m16, e16, p16, r16
-            # pass 2: full classes over the rows pass 1 left unresolved
-            unres = torch.nonzero((qld > 0) & ~a16)[:, 0]
-            for base in range(0, len(unres), self.PASS2_CHUNK):
-                rows = unres[base:base + self.PASS2_CHUNK]
-                fwd, rc, hit = self._tiers(qd[rows], qld[rows])
-                for k in range(N_TIERS):
-                    tA[k, rows], tM[k, rows], tE[k, rows], tQ[k, rows] = \
-                        fwd[k]
-                    tR[k, rows] = rc[k]
-                need[rows] = ~hit
-            tiers = ([(tA[k], tM[k], tE[k], tQ[k]) for k in range(N_TIERS)],
-                     [tR[k] for k in range(N_TIERS)])
+            with trace.span("match.tiers"):
+                # pass 1: exact-class tier-m summaries of every row
+                fwd, rc, _ = self._tiers(qd, qld, classes="exact")
+                (a16, m16, e16, p16), r16 = fwd[0], rc[0]
+                tA = torch.zeros((N_TIERS, B), dtype=torch.bool, device=dev)
+                tM = torch.zeros_like(tA)
+                tR = torch.zeros_like(tA)
+                tE = torch.full((N_TIERS, B), -1, dtype=torch.int64,
+                                device=dev)
+                tQ = torch.full_like(tE, -1)
+                tA[0], tM[0], tE[0], tQ[0], tR[0] = a16, m16, e16, p16, r16
+                # pass 2: full classes over the rows pass 1 left unresolved
+                unres = torch.nonzero((qld > 0) & ~a16)[:, 0]
+                trace.count("match.rows_full_class", len(unres))
+                for base in range(0, len(unres), self.PASS2_CHUNK):
+                    rows = unres[base:base + self.PASS2_CHUNK]
+                    fwd, rc, hit = self._tiers(qd[rows], qld[rows])
+                    for k in range(N_TIERS):
+                        tA[k, rows], tM[k, rows], tE[k, rows], \
+                            tQ[k, rows] = fwd[k]
+                        tR[k, rows] = rc[k]
+                    need[rows] = ~hit
+                tiers = ([(tA[k], tM[k], tE[k], tQ[k])
+                          for k in range(N_TIERS)],
+                         [tR[k] for k in range(N_TIERS)])
         else:
             need = qld > 0            # no tier tables: every row to the DP
 
@@ -603,12 +615,13 @@ class BarcodeMatcher:
         fb, fidx, fties, rb, fqpos, fuval = self._dp_pass(qd, qld,
                                                           self.tables, need)
 
-        bc, score, status, umi, qpos = combine_verdicts(
-            qd, qld, self.spec, self.core_len, tiers,
-            (need, fb, fidx, fties, rb, fqpos, fuval))
-        return {"bc_idx": bc.cpu().numpy(), "score": score.cpu().numpy(),
-                "status": status.cpu().numpy(), "umi": umi.cpu().numpy(),
-                "qpos": qpos.cpu().numpy()}
+        with trace.span("match.verdicts"):
+            bc, score, status, umi, qpos = combine_verdicts(
+                qd, qld, self.spec, self.core_len, tiers,
+                (need, fb, fidx, fties, rb, fqpos, fuval))
+            return {"bc_idx": bc.cpu().numpy(), "score": score.cpu().numpy(),
+                    "status": status.cpu().numpy(), "umi": umi.cpu().numpy(),
+                    "qpos": qpos.cpu().numpy()}
 
     def match_device_with(self, q, qlen, t, dp: bool = True):
         """The match of (B, Lq) int8 candidate tensors on the device of the
@@ -634,12 +647,17 @@ class BarcodeMatcher:
         dev = q.device
         i32 = torch.int32
         if dp:
-            fwd, rc, tier_hit = self._tiers_with(q, qlen, t)
-            need = (qlen > 0) & ~tier_hit
-            return combine_verdicts(
-                q, qlen, self.spec, self.core_len,
-                None if fwd is None else (fwd, rc),
-                (need, *self._dp_pass(q, qlen, t, need)))
+            trace.count("match.rows", B)
+            with trace.span("match.tiers"):
+                fwd, rc, tier_hit = self._tiers_with(q, qlen, t)
+                need = (qlen > 0) & ~tier_hit
+            if fwd is not None:
+                trace.count("match.rows_full_class", B)
+            dp_out = self._dp_pass(q, qlen, t, need)
+            with trace.span("match.verdicts"):
+                return combine_verdicts(
+                    q, qlen, self.spec, self.core_len,
+                    None if fwd is None else (fwd, rc), (need, *dp_out))
         fwd, rc, fwd16_any = self._tiers_with(q, qlen, t, classes="exact")
         if fwd is None:
             pend = qlen > 0

@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..align.aligner import (MIN_CHAIN_CNT, MIN_CHAIN_SCORE,
                              prepare_index_arrays, seed_and_chain)
 from ..align.index import PanelIndex
@@ -272,6 +273,12 @@ def build_cli_step(spec: ChemistrySpec, index: PanelIndex, matcher=None,
     the artifacts with assemble_batch(); reads with defer=True are
     recomputed on the unfused path by the caller. The matcher, when given,
     must live on `device`.
+
+    Each part of a call is a span (trace.py): step.upload (the batch to
+    the device), step.chain (sketch, anchor lookup, K1), step.records,
+    step.extend (its re-round test waits for the card), step.scan (K2+K3),
+    step.slice (subread and BC-UMI slices) and step.tiers (the exact-class
+    whitelist pass).
     """
     dev = torch.device(device)
     n_bases = int(index.ref_lens.astype(np.int64).sum())
@@ -303,20 +310,24 @@ def build_cli_step(spec: ChemistrySpec, index: PanelIndex, matcher=None,
     i32 = torch.int32
 
     def step(codes, lengths, t):
-        codes = (codes if isinstance(codes, torch.Tensor)
-                 else torch.from_numpy(np.ascontiguousarray(codes, np.int8)))
-        lengths = (lengths if isinstance(lengths, torch.Tensor)
-                   else torch.from_numpy(np.asarray(lengths, np.int32)))
-        codes = codes.to(dev).contiguous()
-        lengths = lengths.to(device=dev, dtype=i32)
+        with trace.span("step.upload"):
+            codes = (codes if isinstance(codes, torch.Tensor) else
+                     torch.from_numpy(np.ascontiguousarray(codes, np.int8)))
+            lengths = (lengths if isinstance(lengths, torch.Tensor)
+                       else torch.from_numpy(np.asarray(lengths, np.int32)))
+            codes = codes.to(dev).contiguous()
+            lengths = lengths.to(device=dev, dtype=i32)
         B, L = codes.shape
         m = max(64, ((L // 4) + 63) // 64 * 64)
-        chain_out = seed_and_chain(codes, lengths, t["prefix_start"],
-                                   t["prefix_count"], t["windows"],
-                                   max_minimizers=m)
-        rec = _records_exact(chain_out, lengths, t["ref_lens"], S)
-        ext = _extend_slots(codes, lengths, rec, t["ref_flat"],
-                            t["ref_off"], t["ref_lens"], S)
+        with trace.span("step.chain"):
+            chain_out = seed_and_chain(codes, lengths, t["prefix_start"],
+                                       t["prefix_count"], t["windows"],
+                                       max_minimizers=m)
+        with trace.span("step.records"):
+            rec = _records_exact(chain_out, lengths, t["ref_lens"], S)
+        with trace.span("step.extend"):
+            ext = _extend_slots(codes, lengths, rec, t["ref_flat"],
+                                t["ref_off"], t["ref_lens"], S)
         R = B * S
         read_idx = torch.arange(B, dtype=i32, device=dev).repeat_interleave(S)
         ok = rec["ok"].reshape(R)
@@ -337,134 +348,139 @@ def build_cli_step(spec: ChemistrySpec, index: PanelIndex, matcher=None,
                "n_chains": rec["n_chains"], "defer": rec["defer"]}
 
         # ---- adapter scan (stages/decon._scan_flanks, the decon stage's)
-        if scan is not None:
-            window, wlen, wstart, ed, gs, ge = _scan_flanks(
-                codes, lengths, read_idx, strand, qstart, qend,
-                _anchor_code(f.anchor), f.lo, f.hi, pattern, scan.k,
-                scan.n_wildcard, scan.pick_last, scan.window_size,
-                scan.window_stride, scan.windows_plus_one)
-            Wmax = f.hi - f.lo
-            hit = ok & (ed >= 0) & (ed < scan.max_ed_exclusive)
-        else:
-            wlen = wstart = torch.zeros(R, dtype=i32, device=dev)
-            ed = gs = ge = torch.full((R,), -1, dtype=i32, device=dev)
-            hit = torch.zeros(R, dtype=torch.bool, device=dev)
-            window = None
-            Wmax = 0
+        with trace.span("step.scan"):
+            if scan is not None:
+                window, wlen, wstart, ed, gs, ge = _scan_flanks(
+                    codes, lengths, read_idx, strand, qstart, qend,
+                    _anchor_code(f.anchor), f.lo, f.hi, pattern, scan.k,
+                    scan.n_wildcard, scan.pick_last, scan.window_size,
+                    scan.window_stride, scan.windows_plus_one)
+                Wmax = f.hi - f.lo
+                hit = ok & (ed >= 0) & (ed < scan.max_ed_exclusive)
+            else:
+                wlen = wstart = torch.zeros(R, dtype=i32, device=dev)
+                ed = gs = ge = torch.full((R,), -1, dtype=i32, device=dev)
+                hit = torch.zeros(R, dtype=torch.bool, device=dev)
+                window = None
+                Wmax = 0
 
         # ---- subread slice + accepts (stages/decon.run_decon math)
-        sa = s_qstart if sub.start_anchor == "qstart" else s_qend
-        ea = s_qstart if sub.end_anchor == "qstart" else s_qend
-        sub_strt = sa + sub.start_ofs
-        if spec.name == "5p10XTCR":     # utils.py:245-248
-            sub_strt = torch.where(qlen > -sub.start_ofs, sub_strt, s_qstart)
-        if sub.start_clamp0:
-            sub_strt = sub_strt.clamp(min=0)
-        sub_end = ea + sub.end_ofs
-        if sub.end_clamp_len:
-            sub_end = torch.minimum(sub_end, rlen)
-        sub_len = (sub_end - sub_strt).clamp(min=0)
-        accept_sub = (sub_len > sub.min_len) if sub.min_len else \
-            torch.ones(R, dtype=torch.bool, device=dev)
-        if spec.subread_requires == "clip40":       # RTX utils.py:78,83
-            accept_sub = accept_sub & ((sub_end - s_qend) > 40)
-        elif spec.subread_requires == "span400":    # utils.py:405-407,429
-            accept_sub = accept_sub & ((tend - tstart) > 400)
-        elif spec.subread_requires == "qlen100":    # utils.py:350
-            accept_sub = accept_sub & (qlen > 100)
-        if spec.requires_adapter_for_subread or spec.name == "3p10XTCR":
-            accept_sub = accept_sub & hit
-        accept_sub = accept_sub & ok
+        with trace.span("step.slice"):
+            sa = s_qstart if sub.start_anchor == "qstart" else s_qend
+            ea = s_qstart if sub.end_anchor == "qstart" else s_qend
+            sub_strt = sa + sub.start_ofs
+            if spec.name == "5p10XTCR":     # utils.py:245-248
+                sub_strt = torch.where(qlen > -sub.start_ofs, sub_strt,
+                                       s_qstart)
+            if sub.start_clamp0:
+                sub_strt = sub_strt.clamp(min=0)
+            sub_end = ea + sub.end_ofs
+            if sub.end_clamp_len:
+                sub_end = torch.minimum(sub_end, rlen)
+            sub_len = (sub_end - sub_strt).clamp(min=0)
+            accept_sub = (sub_len > sub.min_len) if sub.min_len else \
+                torch.ones(R, dtype=torch.bool, device=dev)
+            if spec.subread_requires == "clip40":       # RTX utils.py:78,83
+                accept_sub = accept_sub & ((sub_end - s_qend) > 40)
+            elif spec.subread_requires == "span400":    # utils.py:405-407,429
+                accept_sub = accept_sub & ((tend - tstart) > 400)
+            elif spec.subread_requires == "qlen100":    # utils.py:350
+                accept_sub = accept_sub & (qlen > 100)
+            if spec.requires_adapter_for_subread or spec.name == "3p10XTCR":
+                accept_sub = accept_sub & hit
+            accept_sub = accept_sub & ok
 
-        # ---- bcumi slice within the flank window
-        zero = torch.zeros((), dtype=i32, device=dev)
-        bgs = torch.where(hit, gs, zero)
-        bge = torch.where(hit, ge, zero)
-        if rule == "slice":
-            b_lo, b_hi, do_rev, post = bgs, bge, False, 0
-        elif rule == "rev_slice14":
-            b_lo, b_hi, do_rev, post = bgs, bge, True, 14
-        elif rule == "rev_slideseq":
-            b_lo, b_hi, do_rev, post = (bgs - 22).clamp(min=0), bge + 16, \
-                True, 0
-        elif rule == "rev_nuc":
-            bad = bgs < 35
-            b_lo = torch.where(bad, zero, bgs - 35)
-            b_hi = torch.where(bad, zero, bge - 12)
-            do_rev, post = True, 0
-        elif rule == "rev_3pgex":
-            bad = bgs < 32
-            b_lo = torch.where(bad, zero, bgs - 32)
-            b_hi = torch.where(bad, zero, bgs + 3)
-            do_rev, post = True, 0
-        else:
-            b_lo = b_hi = torch.zeros(R, dtype=i32, device=dev)
-            do_rev, post = False, 0
-        b_hi = torch.minimum(b_hi, wlen)
-        b_lo = b_lo.clamp(min=0)
-        b_len = (b_hi - b_lo).clamp(min=0)
+            # ---- bcumi slice within the flank window
+            zero = torch.zeros((), dtype=i32, device=dev)
+            bgs = torch.where(hit, gs, zero)
+            bge = torch.where(hit, ge, zero)
+            if rule == "slice":
+                b_lo, b_hi, do_rev, post = bgs, bge, False, 0
+            elif rule == "rev_slice14":
+                b_lo, b_hi, do_rev, post = bgs, bge, True, 14
+            elif rule == "rev_slideseq":
+                b_lo, b_hi, do_rev, post = (bgs - 22).clamp(min=0), \
+                    bge + 16, True, 0
+            elif rule == "rev_nuc":
+                bad = bgs < 35
+                b_lo = torch.where(bad, zero, bgs - 35)
+                b_hi = torch.where(bad, zero, bge - 12)
+                do_rev, post = True, 0
+            elif rule == "rev_3pgex":
+                bad = bgs < 32
+                b_lo = torch.where(bad, zero, bgs - 32)
+                b_hi = torch.where(bad, zero, bgs + 3)
+                do_rev, post = True, 0
+            else:
+                b_lo = b_hi = torch.zeros(R, dtype=i32, device=dev)
+                do_rev, post = False, 0
+            b_hi = torch.minimum(b_hi, wlen)
+            b_lo = b_lo.clamp(min=0)
+            b_len = (b_hi - b_lo).clamp(min=0)
 
-        accept_bc = hit
-        if spec.name in ("3pXCR_slideseq", "3p10XTCR", "3p10XTCR_nuc",
-                         "3p10XGEX"):
-            accept_bc = accept_bc & accept_sub
-        accept_pre = accept_bc       # pre-length-filter (raw counts / eds)
-        if spec.bcumi_min_len:
-            accept_bc = accept_bc & ((b_len - post) > spec.bcumi_min_len)
-        if rule == "rev_slideseq":
-            # post filter: len>45 and (polyA<70 or (polyA>70 and
-            # A-frac>0.5)) — the reference REJECTS a polyA of exactly 70
-            # (utils.py:468-474); A-frac>0.5 as 2*count > len in ints
-            pa_len = torch.minimum((b_lo + 5).clamp(min=0), wlen)
-            jw = torch.arange(Wmax, dtype=i32, device=dev)[None]
-            a_cnt = ((window == 0) & (jw < pa_len[:, None])).sum(dim=1)
-            acc = (b_len > 45) & ((pa_len < 70) |
-                                  ((pa_len > 70) & (2 * a_cnt > pa_len)))
-            accept_bc = accept_bc & acc
-            out["pa_len"] = pa_len
+            accept_bc = hit
+            if spec.name in ("3pXCR_slideseq", "3p10XTCR", "3p10XTCR_nuc",
+                             "3p10XGEX"):
+                accept_bc = accept_bc & accept_sub
+            accept_pre = accept_bc   # pre-length-filter (raw counts / eds)
+            if spec.bcumi_min_len:
+                accept_bc = accept_bc & ((b_len - post) > spec.bcumi_min_len)
+            if rule == "rev_slideseq":
+                # post filter: len>45 and (polyA<70 or (polyA>70 and
+                # A-frac>0.5)) — the reference REJECTS a polyA of exactly
+                # 70 (utils.py:468-474); A-frac>0.5 as 2*count > len in
+                # ints
+                pa_len = torch.minimum((b_lo + 5).clamp(min=0), wlen)
+                jw = torch.arange(Wmax, dtype=i32, device=dev)[None]
+                a_cnt = ((window == 0) & (jw < pa_len[:, None])).sum(dim=1)
+                acc = (b_len > 45) & ((pa_len < 70) |
+                                      ((pa_len > 70) & (2 * a_cnt > pa_len)))
+                accept_bc = accept_bc & acc
+                out["pa_len"] = pa_len
 
-        out.update(hit=hit, ed=ed, gs=gs, ge=ge, wstart=wstart, wlen=wlen,
-                   sub_strt=sub_strt, sub_end=sub_end,
-                   accept_sub=accept_sub, accept_bc=accept_bc,
-                   accept_pre=accept_pre, b_lo=b_lo, b_hi=b_hi)
+            out.update(hit=hit, ed=ed, gs=gs, ge=ge, wstart=wstart,
+                       wlen=wlen, sub_strt=sub_strt, sub_end=sub_end,
+                       accept_sub=accept_sub, accept_bc=accept_bc,
+                       accept_pre=accept_pre, b_lo=b_lo, b_hi=b_hi)
 
         # ---- whitelist exact-class pass on the sliced candidates
         if do_match:
-            jc = torch.arange(Lc, dtype=i32, device=dev)[None]
-            eff_len = (b_len - post).clamp(min=0)
-            blen = torch.where(accept_bc, eff_len.clamp(0, Lc), zero)
-            if do_rev:
-                src = b_hi[:, None] - 1 - (jc + post)
-                vals = comp[window.gather(
-                    1, src.clamp(0, Wmax - 1).long()).long()]
-            else:
-                src = b_lo[:, None] + jc
-                vals = window.gather(1, src.clamp(0, Wmax - 1).long())
-            cand = torch.where(jc < blen[:, None], vals,
-                               torch.tensor(PAD, dtype=vals.dtype,
-                                            device=dev)).to(torch.int8)
-            # dp=False: rows needing the one-vs-all DP come back
-            # DP_PENDING and the pipeline matches them after the stream
-            bc, score, status, umi, _ = matcher.match_device_with(
-                cand, blen, t["m"], dp=False)
-            # the JAX step matches the first M = B rows of the accepted-
-            # first order (a sort that keeps equal keys in row order on
-            # the CPU), and the other rows only when an accepted row is
-            # among them; unmatched rows carry its no-spill values
-            M = R // S
-            acc_i = accept_bc.to(i32)
-            n_acc = acc_i.sum()
-            rank = torch.where(accept_bc, torch.cumsum(acc_i, 0) - 1,
-                               n_acc + torch.cumsum(1 - acc_i, 0) - 1)
-            unmatched = (rank >= M) & (n_acc <= M)
-            out["bc_idx"] = torch.where(unmatched, -1, bc).to(i32)
-            out["score"] = torch.where(unmatched, NO_SPILL_SCORE,
-                                       score).to(i32)
-            out["status"] = torch.where(unmatched, NO_SPILL_STATUS,
-                                        status).to(i32)
-            out["umi"] = torch.where(unmatched[:, None],
-                                     torch.tensor(PAD, dtype=umi.dtype,
-                                                  device=dev), umi)
+            with trace.span("step.tiers"):
+                jc = torch.arange(Lc, dtype=i32, device=dev)[None]
+                eff_len = (b_len - post).clamp(min=0)
+                blen = torch.where(accept_bc, eff_len.clamp(0, Lc), zero)
+                if do_rev:
+                    src = b_hi[:, None] - 1 - (jc + post)
+                    vals = comp[window.gather(
+                        1, src.clamp(0, Wmax - 1).long()).long()]
+                else:
+                    src = b_lo[:, None] + jc
+                    vals = window.gather(1, src.clamp(0, Wmax - 1).long())
+                cand = torch.where(jc < blen[:, None], vals,
+                                   torch.tensor(PAD, dtype=vals.dtype,
+                                                device=dev)).to(torch.int8)
+                # dp=False: rows needing the one-vs-all DP come back
+                # DP_PENDING and the pipeline matches them after the stream
+                bc, score, status, umi, _ = matcher.match_device_with(
+                    cand, blen, t["m"], dp=False)
+                # the JAX step matches the first M = B rows of the accepted-
+                # first order (a sort that keeps equal keys in row order on
+                # the CPU), and the other rows only when an accepted row is
+                # among them; unmatched rows carry its no-spill values
+                M = R // S
+                acc_i = accept_bc.to(i32)
+                n_acc = acc_i.sum()
+                rank = torch.where(accept_bc, torch.cumsum(acc_i, 0) - 1,
+                                   n_acc + torch.cumsum(1 - acc_i, 0) - 1)
+                unmatched = (rank >= M) & (n_acc <= M)
+                out["bc_idx"] = torch.where(unmatched, -1, bc).to(i32)
+                out["score"] = torch.where(unmatched, NO_SPILL_SCORE,
+                                           score).to(i32)
+                out["status"] = torch.where(unmatched, NO_SPILL_STATUS,
+                                            status).to(i32)
+                out["umi"] = torch.where(unmatched[:, None],
+                                         torch.tensor(PAD, dtype=umi.dtype,
+                                                      device=dev), umi)
         return out
 
     return step, tables

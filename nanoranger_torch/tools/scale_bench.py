@@ -191,7 +191,6 @@ def measure(d: str, truth, mb: int, n_refs: int, n_wl: int,
         "whitelist": int(n_wl), "reads": n_reads,
         "wall_s": round(wall, 1),
         "reads_per_s": round(n_reads / wall, 1),
-        "steady_reads_per_s": s0.get("steady_reads_per_s"),
         "accepted": int(n_acc),
         "accept_rate": round(n_acc / max(n_rows, 1), 3),
         "bc_accuracy_of_accepted": round(n_ok / max(n_acc, 1), 4),

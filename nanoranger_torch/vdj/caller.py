@@ -22,6 +22,13 @@ replacement for `mixcr align`+`assemble`, reference scripts/mixcr.sh:8-22):
 Subreads arrive transcript-forward (the decon stage emits slices in SAM
 orientation, like the reference's pysam query_sequence), so frame
 direction is known; reverse-strand panel hits are treated as junk.
+
+Spans (trace.py): vdj.index (the merged V index, its aligner, the C
+panel), vdj.align (step 1 and the banded jobs cut from it), vdj.banded
+(step 2's banded DP), vdj.cdr3 (steps 3-4: CDR3, partials, C probe),
+vdj.assemble (step 5's germline context and assembly), vdj.exports;
+counters: the tallies of the log line (vdj.subreads, vdj.v_aligned,
+vdj.name_hinted, vdj.calls, vdj.partial, vdj.clones).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import time
 
 import numpy as np
 
+from .. import trace
 from ..align.aligner import PanelAligner
 from ..align.index import PanelIndex
 from ..io import fastq
@@ -158,133 +166,150 @@ def call_clonotypes(sub_fastq: str, v_fastas: list, outdir: str,
     for J/C locus assignment. The V-panel alignment runs on `device`.
     Returns (clones_df, cloneID_df)."""
     t0 = time.time()
-    index = _merged_index(v_fastas)
-    aligner = PanelAligner(index, device)
-    v_codes = [np.asarray(s, np.int8) for s in index.seq_codes]
-    cys = np.asarray([cdr3mod.v_cys_position(s) for s in v_codes])
-    v_ids = {nm: i for i, nm in enumerate(index.names)}
-    cpanel = _CPanel(c_fastas) if c_fastas else None
+    with trace.span("vdj.index"):
+        index = _merged_index(v_fastas)
+        aligner = PanelAligner(index, device)
+        v_codes = [np.asarray(s, np.int8) for s in index.seq_codes]
+        cys = np.asarray([cdr3mod.v_cys_position(s) for s in v_codes])
+        v_ids = {nm: i for i, nm in enumerate(index.names)}
+        cpanel = _CPanel(c_fastas) if c_fastas else None
 
     calls: list = []
     n_total = n_aligned = n_fallback = 0
     for batch in fastq.iter_batches(sub_fastq, batch_size, max_len=max_len):
         n = len(batch)
         n_total += n
-        rec = aligner.align(batch.codes, batch.lengths)
-        best = _primary_per_read(rec, n)
+        with trace.span("vdj.align"):
+            rec = aligner.align(batch.codes, batch.lengths)
+            best = _primary_per_read(rec, n)
 
-        # --- gather banded-alignment jobs -------------------------------
-        jobs = []      # (read_i, v_id, qstart, tstart, q_seg, t_seg)
-        for i in range(n):
-            r = int(best[i])
-            if r >= 0:
-                v = int(rec.ref_id[r])
-                if cys[v] < 0:
-                    continue
-                qs, qe = int(rec.qstart[r]), int(rec.qend[r])
-                ts, te = int(rec.tstart[r]), int(rec.tend[r])
-                if te < cys[v] - MIN_TAIL_COVER:
-                    continue    # alignment ends before the junction
-                te_c = min(te, len(v_codes[v]))
-                jobs.append((i, v, qs, ts,
-                             batch.codes[i, qs:qe].copy(),
-                             v_codes[v][ts:te_c]))
-                n_aligned += 1
-            else:
-                v = _name_v_hint(batch.names[i], v_ids)
-                if v < 0 or cys[v] < 0:
-                    continue
-                # 5' window: subread head ≈ V tail (decon window starts at
-                # qend-60 of the original V alignment)
-                vt = v_codes[v][-FALLBACK_VTAIL:]
-                qlen = int(batch.lengths[i])
-                q_seg = batch.codes[i, :min(FALLBACK_VTAIL + 8, qlen)].copy()
-                ts = len(v_codes[v]) - FALLBACK_VTAIL
-                jobs.append((i, v, 0, ts, q_seg, vt))
-                n_fallback += 1
+            # --- gather banded-alignment jobs ---------------------------
+            jobs = []      # (read_i, v_id, qstart, tstart, q_seg, t_seg)
+            for i in range(n):
+                r = int(best[i])
+                if r >= 0:
+                    v = int(rec.ref_id[r])
+                    if cys[v] < 0:
+                        continue
+                    qs, qe = int(rec.qstart[r]), int(rec.qend[r])
+                    ts, te = int(rec.tstart[r]), int(rec.tend[r])
+                    if te < cys[v] - MIN_TAIL_COVER:
+                        continue    # alignment ends before the junction
+                    te_c = min(te, len(v_codes[v]))
+                    jobs.append((i, v, qs, ts,
+                                 batch.codes[i, qs:qe].copy(),
+                                 v_codes[v][ts:te_c]))
+                    n_aligned += 1
+                else:
+                    v = _name_v_hint(batch.names[i], v_ids)
+                    if v < 0 or cys[v] < 0:
+                        continue
+                    # 5' window: subread head ≈ V tail (decon window starts
+                    # at qend-60 of the original V alignment)
+                    vt = v_codes[v][-FALLBACK_VTAIL:]
+                    qlen = int(batch.lengths[i])
+                    q_seg = batch.codes[
+                        i, :min(FALLBACK_VTAIL + 8, qlen)].copy()
+                    ts = len(v_codes[v]) - FALLBACK_VTAIL
+                    jobs.append((i, v, 0, ts, q_seg, vt))
+                    n_fallback += 1
 
         if not jobs:
             continue
-        cigars, scores, nms = banded_align_batch(
-            [j[4] for j in jobs], [j[5] for j in jobs], band=48)
+        with trace.span("vdj.banded"):
+            cigars, scores, nms = banded_align_batch(
+                [j[4] for j in jobs], [j[5] for j in jobs], band=48)
 
-        for (i, v, qs, ts, q_seg, t_seg), cig, sc, nm in zip(
-                jobs, cigars, scores, nms):
-            if len(t_seg) and nm / max(len(t_seg), 1) > FALLBACK_MAX_NMFRAC:
-                continue
-            t_tgt = int(cys[v]) - ts
-            if t_tgt < len(t_seg):
-                q_off = cdr3mod.cigar_map_t_to_q(cig, t_tgt)
-                if q_off < 0:
+        with trace.span("vdj.cdr3"):
+            for (i, v, qs, ts, q_seg, t_seg), cig, sc, nm in zip(
+                    jobs, cigars, scores, nms):
+                if len(t_seg) and \
+                        nm / max(len(t_seg), 1) > FALLBACK_MAX_NMFRAC:
                     continue
-                pinned = True     # anchor position confirmed base-level
-            else:
-                over = t_tgt - len(t_seg)
-                if over > MAX_EXTRAPOLATE:
+                t_tgt = int(cys[v]) - ts
+                if t_tgt < len(t_seg):
+                    q_off = cdr3mod.cigar_map_t_to_q(cig, t_tgt)
+                    if q_off < 0:
+                        continue
+                    pinned = True     # anchor position confirmed base-level
+                else:
+                    over = t_tgt - len(t_seg)
+                    if over > MAX_EXTRAPOLATE:
+                        continue
+                    q_off = len(q_seg) + over   # ungapped extension
+                    pinned = False
+                cys_read = qs + q_off
+                qlen = int(batch.lengths[i])
+                got = cdr3mod.extract_cdr3(batch.codes[i, :qlen], cys_read,
+                                           require_cys=not pinned)
+                if got is None:
+                    # partial junction (assemblePartial/extend analogue,
+                    # reference scripts/mixcr4.sh:10-14): the read
+                    # TRUNCATES inside the J-motif scan window, so the
+                    # junction prefix is real but incomplete. Emit it for
+                    # overlap-merge onto an assembled clone
+                    # (clonotype.assemble partials tier). Only
+                    # base-level-pinned anchors qualify, and the prefix
+                    # must be stop-free in the Cys frame.
+                    tail_len = qlen - cys_read
+                    if pinned and \
+                            PARTIAL_MIN_NT <= tail_len < PARTIAL_WINDOW_NT:
+                        tail = np.asarray(batch.codes[i, cys_read:qlen])
+                        aa_p = cdr3mod.translate(tail)
+                        if aa_p and "*" not in aa_p:
+                            from ..io.encode import decode as _d
+                            calls.append(ReadCall(
+                                name=batch.names[i], v_name=index.names[v],
+                                v_score=int(sc),
+                                chain=cdr3mod.chain_of(index.names[v]),
+                                cdr3_nt=_d(tail, tail_len), cdr3_aa="",
+                                clean=False, partial=True,
+                                seq=_d(np.asarray(batch.codes[i, :qlen]),
+                                       qlen)))
                     continue
-                q_off = len(q_seg) + over   # ungapped extension
-                pinned = False
-            cys_read = qs + q_off
-            qlen = int(batch.lengths[i])
-            got = cdr3mod.extract_cdr3(batch.codes[i, :qlen], cys_read,
-                                       require_cys=not pinned)
-            if got is None:
-                # partial junction (assemblePartial/extend analogue,
-                # reference scripts/mixcr4.sh:10-14): the read TRUNCATES
-                # inside the J-motif scan window, so the junction prefix
-                # is real but incomplete. Emit it for overlap-merge onto
-                # an assembled clone (clonotype.assemble partials tier).
-                # Only base-level-pinned anchors qualify, and the prefix
-                # must be stop-free in the Cys frame.
-                tail_len = qlen - cys_read
-                if pinned and PARTIAL_MIN_NT <= tail_len < PARTIAL_WINDOW_NT:
-                    tail = np.asarray(batch.codes[i, cys_read:qlen])
-                    aa_p = cdr3mod.translate(tail)
-                    if aa_p and "*" not in aa_p:
-                        from ..io.encode import decode as _d
-                        calls.append(ReadCall(
-                            name=batch.names[i], v_name=index.names[v],
-                            v_score=int(sc),
-                            chain=cdr3mod.chain_of(index.names[v]),
-                            cdr3_nt=_d(tail, tail_len), cdr3_aa="",
-                            clean=False, partial=True,
-                            seq=_d(np.asarray(batch.codes[i, :qlen]),
-                                   qlen)))
-                continue
-            nt, aa = got
-            clean = (not aa.endswith("_")) and aa.startswith("C")
-            c_name, c_score = "", 0
-            if cpanel is not None:
-                j_start = cys_read + len(nt)
-                seg = batch.codes[i, j_start: min(j_start + C_PROBE, qlen)]
-                c_name, c_score = cpanel.assign([seg])[0]
-            from ..io.encode import decode as _d
-            calls.append(ReadCall(
-                name=batch.names[i], v_name=index.names[v],
-                v_score=int(sc), chain=cdr3mod.chain_of(index.names[v]),
-                cdr3_nt=nt, cdr3_aa=aa, clean=clean,
-                c_name=c_name, c_score=int(c_score),
-                seq=_d(np.asarray(batch.codes[i, :qlen]), qlen)))
+                nt, aa = got
+                clean = (not aa.endswith("_")) and aa.startswith("C")
+                c_name, c_score = "", 0
+                if cpanel is not None:
+                    j_start = cys_read + len(nt)
+                    seg = batch.codes[i, j_start:
+                                      min(j_start + C_PROBE, qlen)]
+                    c_name, c_score = cpanel.assign([seg])[0]
+                from ..io.encode import decode as _d
+                calls.append(ReadCall(
+                    name=batch.names[i], v_name=index.names[v],
+                    v_score=int(sc), chain=cdr3mod.chain_of(index.names[v]),
+                    cdr3_nt=nt, cdr3_aa=aa, clean=clean,
+                    c_name=c_name, c_score=int(c_score),
+                    seq=_d(np.asarray(batch.codes[i, :qlen]), qlen)))
 
-    # germline context for the clone exports: V tails from the conserved
-    # Cys (CDR3 imputation) and the bundled D panel (junction D calls)
-    from ..io.encode import decode as _dec
-    v_tails = {index.names[v]: _dec(np.asarray(
-        v_codes[v][cys[v]:], np.int8), len(v_codes[v]) - cys[v])
-        for v in range(len(v_codes)) if cys[v] >= 0}
-    d_panel = None
-    import os as _os
-    d_path = _os.path.join(_os.path.dirname(_os.path.dirname(
-        _os.path.dirname(_os.path.abspath(__file__)))), "data",
-        "TR_D_human.fa")
-    if _os.path.isfile(d_path):
-        from .clonotype import DPanel
-        d_panel = DPanel(d_path)
-    stats: dict = {}
-    clones, cloneID = assemble(calls, v_tails=v_tails, d_panel=d_panel,
-                               stats=stats)
-    write_exports(clones, cloneID, outdir, sample)
+    with trace.span("vdj.assemble"):
+        # germline context for the clone exports: V tails from the
+        # conserved Cys (CDR3 imputation) and the bundled D panel (junction
+        # D calls)
+        from ..io.encode import decode as _dec
+        v_tails = {index.names[v]: _dec(np.asarray(
+            v_codes[v][cys[v]:], np.int8), len(v_codes[v]) - cys[v])
+            for v in range(len(v_codes)) if cys[v] >= 0}
+        d_panel = None
+        import os as _os
+        d_path = _os.path.join(_os.path.dirname(_os.path.dirname(
+            _os.path.dirname(_os.path.abspath(__file__)))), "data",
+            "TR_D_human.fa")
+        if _os.path.isfile(d_path):
+            from .clonotype import DPanel
+            d_panel = DPanel(d_path)
+        stats: dict = {}
+        clones, cloneID = assemble(calls, v_tails=v_tails, d_panel=d_panel,
+                                   stats=stats)
+    with trace.span("vdj.exports"):
+        write_exports(clones, cloneID, outdir, sample)
     npar = stats.get("n_partial_reads", 0)
+    for k, v in (("vdj.subreads", n_total), ("vdj.v_aligned", n_aligned),
+                 ("vdj.name_hinted", n_fallback),
+                 ("vdj.calls", len(calls) - npar), ("vdj.partial", npar),
+                 ("vdj.clones", len(clones))):
+        trace.count(k, v)
     log(f"native clonotyper: {n_total} subreads → {n_aligned} V-aligned "
         f"+ {n_fallback} name-hinted, {len(calls) - npar} CDR3 calls "
         f"(+{npar} partial junctions, "

@@ -48,9 +48,13 @@ def _run_both(mode, infile, tmp_path, **kw):
     return dirs
 
 
-def _align_decon(outdir):
+def _runstats(outdir):
     with open(os.path.join(outdir, "t_runstats.json")) as f:
-        return json.load(f)["stages"][0]
+        return json.load(f)
+
+
+def _align_decon(outdir):
+    return _runstats(outdir)["stages"][0]
 
 
 def _carried_10x(seqs, full):
@@ -132,10 +136,25 @@ def test_concatemer_defer_interleave(concatemers, concat_slow, tmp_path):
     assert a == _hash_artifacts(out)
     assert {"t_deconcat.fastq.gz", "t_BCUMI.fasta.gz",
             "t_assignments.csv.gz", "t_bcumi_dedup.csv"} <= set(a)
-    fast = _align_decon(out)
+    rs = _runstats(out)
+    fast = rs["stages"][0]
     assert fast.get("deferred_reads", 0) >= 2
+    assert {"seconds", "reads", "whitelist_s", "index_s"} <= set(fast)
     assert set(fast["phase_s"]) == {"read", "step", "assemble", "slow"}
-    assert fast["steady_reads_per_s"] > 0
+    # phase_s is made of the decon.* spans, its step of issue + download
+    tot = rs["span_totals"]
+    assert {"decon.read", "decon.step.issue", "decon.step.download",
+            "decon.assemble", "decon.slow", "step.upload", "step.chain",
+            "step.records", "step.extend", "step.scan",
+            "step.slice"} <= set(tot)
+    ph = fast["phase_s"]
+    assert ph["step"] == round(tot["decon.step.issue"]["s"] +
+                               tot["decon.step.download"]["s"], 3)
+    for k in ("read", "assemble", "slow"):
+        assert ph[k] == round(tot[f"decon.{k}"]["s"], 3)
+    assert rs["counters"]["decon.deferred_reads"] == fast["deferred_reads"]
+    assert sum(v for k, v in rs["counters"].items()
+               if k.startswith("decon.reads.L")) == fast["reads"]
     assert "phase_s" not in _align_decon(concat_slow)
 
 
@@ -235,6 +254,30 @@ def test_fast_slow_equal_slideseq(tmp_path):
     assert a == _hash_artifacts(dirs["fast"])
     assert {"t_VDJ.fastq.gz", "t_BCUMI.fasta.gz", "t_eds_names.csv.gz",
             "t_polyA.fasta.gz", "t_assignments.csv.gz"} <= set(a)
+    # the clonotyper's and the match's spans: no tier tables, so every
+    # candidate goes to the DP
+    rs = _runstats(dirs["fast"])
+    spans = rs["spans"]
+    names = {s[0] for s in spans}
+    assert {"vdj.index", "vdj.align", "vdj.banded", "vdj.cdr3",
+            "vdj.assemble", "vdj.exports", "match.dp",
+            "match.verdicts"} <= names
+    assert "match.tiers" not in names
+    c = rs["counters"]
+    assert c["match.rows_dp"] == c["match.rows"] > 0
+    row = {r["stage"]: r for r in rs["stages"]}["clonotypes"]
+    (ci, clo), = [(i, s) for i, s in enumerate(spans)
+                  if s[0] == "clonotypes"]
+    kids = [s for s in spans if s[3] == ci]
+    assert {s[0] for s in kids} == {"vdj.index", "vdj.align", "vdj.banded",
+                                    "vdj.cdr3", "vdj.assemble",
+                                    "vdj.exports"}
+    assert all(clo[1] <= s[1] <= s[2] <= clo[2] for s in kids)
+    covered = sum(s[2] - s[1] for s in kids) / (clo[2] - clo[1])
+    assert covered >= 0.8
+    tot = rs["span_totals"]["clonotypes"]
+    assert row["seconds"] == round(tot["s"], 3)
+    assert abs(tot["self_s"] - (1 - covered) * tot["s"]) < 1e-6
 
 
 def test_fast_slow_equal_tcr3(tmp_path):

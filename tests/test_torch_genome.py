@@ -64,8 +64,17 @@ def test_pipeline_with_genome_artifacts_equal_jax(runs):
     assert len(recs) > 50
     assert all(r.tags["CB"] and r.tags["UB"] for r in recs)
     with open(os.path.join(torch_dir, "t_runstats.json")) as f:
-        stages = [s["stage"] for s in json.load(f)["stages"]]
+        rs = json.load(f)
+    stages = [s["stage"] for s in rs["stages"]]
     assert stages == ["align_decon", "barcode_match", "dedup", "genome_tag"]
+    # the genome stage's row keeps its keys, each its span's seconds
+    row = rs["stages"][-1]
+    tot = rs["span_totals"]
+    for key, name in (("index_s", "genome.index"), ("align_s", "genome.align"),
+                      ("cigar_s", "genome.cigar"), ("write_s", "genome.write")):
+        assert abs(row[key] - tot[name]["s"]) <= 5e-4 + 1e-9, key
+    assert row["records"] == len(recs)
+    assert row["seconds"] == round(tot["genome_tag"]["s"], 3)
 
 
 def test_downstream_readers_equal_jax(runs, tmp_path):

@@ -30,7 +30,7 @@ from test_sharded import _mk_candidates, _mk_whitelist
 from test_torch_barcode import _candidates, _structured
 from test_torch_pipeline import _hash_artifacts
 
-from nanoranger_torch import chemistry, kernels, pipeline
+from nanoranger_torch import chemistry, kernels, pipeline, trace
 from nanoranger_torch.align import aligner
 from nanoranger_torch.io import bam, whitelist
 from nanoranger_torch.io.encode import decode, encode_batch
@@ -201,23 +201,25 @@ def test_launch_runs_on_the_card_of_its_tensors(monkeypatch):
     assert len(calls) == 1 and kernels.launches["verify"] == before + 1
 
 
-def test_step_timers_cover_the_sharded_match(rng, monkeypatch):
-    """With step_s set, each step of the sharded match is timed and the
-    outputs are those of the untimed run."""
+def test_step_timers_cover_the_sharded_match(rng):
+    """Inside a traced run each step of the sharded match is a span under
+    the single-device matcher's names, each data block's steps in order,
+    and the outputs are those of the untraced run."""
     spec, wl, q, qlen = _inputs(rng, "5p10XGEX", 5, 32)
     mesh = make_mesh(2, 4, devices=["cpu"])
     swl = ShardedWhitelist(wl, spec, 4)
     fn = build_sharded_match(swl, mesh)
     arrs = swl.device_arrays(mesh)
     want = fn(q, qlen, arrs)
-    monkeypatch.setattr(sharded, "step_s", {})
-    got = fn(q, qlen, arrs)
+    with trace.run() as tr:
+        got = fn(q, qlen, arrs)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert set(sharded.step_s) == {"tier_hits", "tier_merge", "dp",
-                                   "dp_merge", "rescore", "verdicts",
-                                   "gather"}
-    assert all(h >= 0 and w >= 0 for h, w in sharded.step_s.values())
+    assert [s[0] for s in tr.spans] == 2 * [
+        "match.tiers", "match.dp", "match.verdicts"] + ["match.verdicts"]
+    assert all(s[1] <= s[2] for s in tr.spans)
+    assert tr.counters["match.rows_full_class"] == len(q)
+    assert 0 < tr.counters["match.rows_dp"] <= len(q)
 
 
 @pytest.fixture(scope="module")

@@ -25,7 +25,7 @@ from nanoranger_tpu.vdj import call_clonotypes as jax_call_clonotypes
 from nanoranger_tpu.vdj import cdr3 as jax_cdr3
 from nanoranger_tpu.vdj import clonotype as jax_clonotype
 
-from nanoranger_torch import chemistry
+from nanoranger_torch import chemistry, trace
 from nanoranger_torch.io.fasta import read_fasta_encoded
 from nanoranger_torch.pipeline import DeconRun
 from nanoranger_torch.runtime import native_lib
@@ -178,9 +178,11 @@ def test_call_clonotypes_equals_jax_on_tcr3_subreads(tmp_path):
     want = jax_call_clonotypes(run.sub_path, [V_PANEL], str(tmp_path / "jax"),
                                "s", c_fastas=c_fastas, log=lambda *_: None)
     logs = []
-    got = call_clonotypes(run.sub_path, [V_PANEL], str(tmp_path / "torch"),
-                          "s", c_fastas=c_fastas, log=logs.append,
-                          device="cpu")
+    with trace.run() as tr:
+        got = call_clonotypes(run.sub_path, [V_PANEL],
+                              str(tmp_path / "torch"), "s",
+                              c_fastas=c_fastas, log=logs.append,
+                              device="cpu")
     assert len(want[0]) >= 3 and len(want[1]) >= 10
     for g, w in zip(got, want):
         assert g.equals(w)
@@ -189,3 +191,15 @@ def test_call_clonotypes_equals_jax_on_tcr3_subreads(tmp_path):
                 gzip.open(tmp_path / "jax" / name, "rb") as b:
             assert a.read() == b.read()
     assert "V-aligned" in logs[0]
+    # the counters are the tallies the call's log line prints
+    tallies = re.match(r"native clonotyper: (\d+) subreads → (\d+) "
+                       r"V-aligned \+ (\d+) name-hinted, (\d+) CDR3 calls "
+                       r"\(\+(\d+) partial junctions, \d+ merged into "
+                       r"clones\), (\d+) clones", logs[0])
+    keys = ("vdj.subreads", "vdj.v_aligned", "vdj.name_hinted", "vdj.calls",
+            "vdj.partial", "vdj.clones")
+    assert {k: tr.counters[k] for k in keys} == \
+        dict(zip(keys, map(int, tallies.groups())))
+    assert tr.counters["vdj.subreads"] == run.n_sub
+    assert tr.counters["vdj.clones"] == len(got[0])
+    assert tr.counters["vdj.name_hinted"] > 0
