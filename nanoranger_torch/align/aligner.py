@@ -6,7 +6,8 @@ Counterpart of the JAX package's align/aligner.py, for both of its presets:
   - "splice" against genomes (minimap2 `-x splice`, reference
     scripts/align_genome.sh:9): the chain DP also admits an intron gap
     class (large target gap, small query gap, log-penalised) up to
-    MAX_INTRON, and extract_exons splits each chain into exon blocks.
+    MAX_INTRON, extract_exons splits each chain into exon blocks, and
+    clip_exon_blocks clips the blocks that overlap.
 The contract is the set of (qstart, qend, strand, ref, ref span) alignment
 records per read, primary plus supplementaries.
 
@@ -293,6 +294,34 @@ def extract_exons(chain_out: dict, records: AlignmentRecords,
         out.append([(int(ts[a]), int(ts[b]) + K, int(qs[a]), int(qs[b]) + K)
                     for a, b in zip(lo, hi)])
     return out
+
+
+def clip_exon_blocks(blocks: list) -> tuple:
+    """(blocks, n_trimmed, n_dropped): each block of one record clipped
+    against the end of the block kept before it, on the query and on the
+    target.
+
+    A block ends at its last anchor + K, so the next block, which starts
+    at its first anchor, may start before that end on the query or the
+    target. Joined as they are, such blocks give a CIGAR that consumes
+    more query bases than the read holds, or puts aligned runs where no
+    block aligned. Deliberate fix of a defect shared with the reference
+    implementation: both starts advance by the larger of the two overlaps
+    (the block stays on its diagonal), and a block the clip empties is
+    dropped. Every query and target gap between kept blocks is then >= 0.
+    Records without overlapping blocks are unchanged."""
+    out = [blocks[0]]
+    trimmed = dropped = 0
+    for (t_lo, t_hi, q_lo, q_hi) in blocks[1:]:
+        ov = max(out[-1][1] - t_lo, out[-1][3] - q_lo, 0)
+        if ov:
+            t_lo, q_lo = t_lo + ov, q_lo + ov
+            if t_lo >= t_hi or q_lo >= q_hi:
+                dropped += 1
+                continue
+            trimmed += 1
+        out.append((t_lo, t_hi, q_lo, q_hi))
+    return out, trimmed, dropped
 
 
 class PanelAligner:

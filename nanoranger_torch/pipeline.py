@@ -57,6 +57,7 @@ import pickle
 import re
 import tempfile
 import time
+from array import array
 from collections import deque
 
 import numpy as np
@@ -64,7 +65,8 @@ import pandas as pd
 import torch
 
 from . import chemistry, trace
-from .align.aligner import PanelAligner, extract_records
+from .align.aligner import (PanelAligner, clip_exon_blocks, extract_exons,
+                            extract_records)
 from .align.index import PanelIndex
 from .io import fastq, whitelist
 from .io.bam import BAMWriter
@@ -207,6 +209,10 @@ class DeconRun:
         # spill-backed candidate store: bounded resident memory however
         # many reads stream through
         self.cands = CandidateStore()
+        # the panel reference of each candidate's decon record, in the
+        # store's order (None for a run resumed from its artifacts)
+        self.cand_refs = array("i")
+        self.trns_ref = trns_ref
         self.eds_rows: list = []
         self.raw_counts: dict = {}
         self.polyA: list = []
@@ -226,6 +232,7 @@ class DeconRun:
                 rc = pd.read_csv(rc_path, index_col=0)
                 self.raw_counts = dict(zip(rc.index, rc.iloc[:, 0]))
             self.resumed = True
+            self.cand_refs = None
             self.n_reads = self.n_sub = -1
             log(f"resume: decon artifacts present, loaded "
                 f"{len(self.cands)} BC-UMI candidates "
@@ -267,9 +274,11 @@ class DeconRun:
                 for nm, sq, ql in zip(out.sub_names, out.sub_seqs,
                                       out.sub_quals):
                     fsub.write(nm, sq, ql)
-                for nm, sq in zip(out.bcumi_names, out.bcumi_seqs):
+                for nm, sq, ri in zip(out.bcumi_names, out.bcumi_seqs,
+                                      out.bcumi_rec):
                     fbc.write(nm, sq)
                     self.cands.append(nm, sq)
+                    self.cand_refs.append(int(rec.ref_id[ri]))
                 self.eds_rows.extend(out.eds_rows)
                 self.polyA.extend(out.polyA)
                 for k, v in out.raw_bc_counts.items():
@@ -373,13 +382,14 @@ class DeconRun:
         def advance():
             nonlocal cursor, n_sub
             while cursor in chunks:
-                asm, lo, hi = chunks.pop(cursor)
+                asm, refs, lo, hi = chunks.pop(cursor)
                 for j in range(lo[0], hi[0]):
                     fsub.write(asm.sub_names[j], asm.sub_seqs[j],
                                asm.sub_quals[j])
                 for j in range(lo[1], hi[1]):
                     fbc.write(asm.bcumi_names[j], asm.bcumi_seqs[j])
                     self.cands.append(asm.bcumi_names[j], asm.bcumi_seqs[j])
+                    self.cand_refs.append(refs[j])
                     if do_match:
                         mbc.append(asm.match_bc[j])
                         mscore.append(asm.match_score[j])
@@ -392,13 +402,13 @@ class DeconRun:
                 n_sub += hi[0] - lo[0]
                 cursor += 1
 
-        def emit(asm, seqs):
+        def emit(asm, refs, seqs):
             self.n_deferred += asm.n_deferred_reads
             prev = (0, 0, 0, 0, 0)
             for k, b in enumerate(asm.read_bounds):
                 s = int(seqs[k])
                 if s >= 0:
-                    chunks[s] = (asm, prev, b)
+                    chunks[s] = (asm, refs, prev, b)
                 prev = b
             advance()
 
@@ -443,7 +453,13 @@ class DeconRun:
                         slow_fallback=lambda didx, bi=bi: {
                             int(i): groups_all.get((bi, int(i)), {})
                             for i in didx})
-                    emit(asm, seqs)
+                    refs = _fused_bcumi_refs(
+                        out, lambda i, bi=bi: groups_all.get((bi, i), {}))
+                    if len(refs) != len(asm.bcumi_names):
+                        raise RuntimeError(
+                            f"{len(refs)} transcripts for "
+                            f"{len(asm.bcumi_names)} candidates")
+                    emit(asm, refs, seqs)
             buffer.clear()
             buf_defers = 0
 
@@ -586,8 +602,8 @@ class DeconRun:
 
         def grp(gi):
             return groups.setdefault(int(gi), {"sub": [], "bc": [],
-                                               "eds": [], "polyA": [],
-                                               "raw": []})
+                                               "bc_ref": [], "eds": [],
+                                               "polyA": [], "raw": []})
 
         rd = rec.read_idx
         for k, ri in enumerate(out.sub_rec):
@@ -596,6 +612,7 @@ class DeconRun:
         for k, ri in enumerate(out.bcumi_rec):
             g = grp(rd[ri])
             g["bc"].append((out.bcumi_names[k], out.bcumi_seqs[k]))
+            g["bc_ref"].append(int(rec.ref_id[ri]))
             if spec.bcumi_rule == "rev_slideseq":
                 g["polyA"].append(out.polyA[k])
         if out.eds_rec is not None:
@@ -604,6 +621,19 @@ class DeconRun:
         for (ri, key) in (out.raw_rows or []):
             grp(rd[ri])["raw"].append(key)
         return groups
+
+    def transcripts(self) -> list:
+        """The transcript of each candidate, in the store's order: the
+        panel reference of the decon record that made it, never a field
+        parsed from its name (a read name may hold '_'). A run resumed
+        from its decon artifacts has no records; each name then gives the
+        longest panel name that ends it after an integer (flag) field."""
+        if self.cand_refs is not None:
+            names = self.index.names
+            return [names[r] for r in self.cand_refs]
+        panel = {n.split()[0] for n, _ in iter_fasta(self.trns_ref)}
+        return [_transcript_in_name(n, panel)
+                for n in self.cands.names_list()]
 
     def eds_artifacts(self, outdir, sample) -> list:
         """Mode-specific stats artifacts write_eds produces (resume set)."""
@@ -636,6 +666,34 @@ class DeconRun:
             with FastaWriter(f"{outdir}/{sample}_polyA.fasta.gz") as f:
                 for n, s in self.polyA:
                     f.write(n, s)
+
+
+def _fused_bcumi_refs(out, slow) -> list:
+    """The panel reference of each candidate of a fused batch, in
+    assemble_batch's order: each read's slots in turn, and for a deferred
+    read the candidates of its unfused rerun (slow(i)["bc_ref"])."""
+    defer = out["defer"]
+    S = len(out["flag"]) // max(len(defer), 1)
+    ok = (out["ok"] & out["accept_bc"]).reshape(-1, S)
+    ref = out["ref_id"].reshape(-1, S)
+    if not defer.any():
+        return ref[ok].tolist()
+    refs: list = []
+    for i in range(len(defer)):
+        refs += (slow(i).get("bc_ref", []) if defer[i]
+                 else ref[i][ok[i]].tolist())
+    return refs
+
+
+def _transcript_in_name(name: str, panel: set) -> str:
+    """The longest panel name that ends a decon name after an integer
+    field: {qname}_{qstrt}_{qend}_{flag}_{trans}."""
+    parts = name.split("_")
+    for k in range(1, len(parts)):
+        t = "_".join(parts[k:])
+        if t in panel and parts[k - 1].isdigit():
+            return t
+    return ""
 
 
 def _atomic_to_csv(df, path, **kw):
@@ -808,10 +866,22 @@ def genome_stage(spec, outdir, sample, genome_ref, tag_map, device,
     and a k-way heap merge writes the BAM. Peak memory is one batch of
     records plus the merge heads.
 
+    Exon blocks that overlap are clipped first
+    (align/aligner.clip_exon_blocks), so every record's CIGAR consumes
+    exactly its SEQ; an insertion between two blocks that no N separates
+    counts in NM, as an insertion inside a block does. Records without
+    overlapping blocks are those of the reference implementation.
+
     Returns the record count and the seconds of its parts, the spans
     genome.index (index build), genome.align (splice chain DP on the
-    device, records, exon blocks), genome.cigar (the banded DP and CIGARs
-    of the exons) and genome.write (the merge into the BAM)."""
+    device, records, and within it genome.exons: the exon blocks, clipped,
+    on the host), genome.cigar (the banded DP and CIGARs of the exons) and
+    genome.write (the merge into the BAM). Counters, host integers only:
+    genome.records (records written), genome.blocks (their exon blocks
+    before the clip), genome.blocks_trimmed and genome.blocks_dropped (by
+    the clip), genome.spliced_records (records holding an N) and
+    genome.partner_reads (written subreads whose records, supplementary
+    ones included, lie on two or more references: fusion evidence)."""
     done = [f"{outdir}/{sample}_genome_tagged.bam",
             f"{outdir}/{sample}_genome_tagged.bam.bai",
             f"{outdir}/{sample}_trns_ct.csv"]
@@ -826,12 +896,13 @@ def genome_stage(spec, outdir, sample, genome_ref, tag_map, device,
     sub_path = f"{outdir}/{sample}_deconcat.fastq.gz"
     cig_re = re.compile(r"(\d+)([=XIDN])")
     spills: list = []
-    n_rows = 0
+    n_rows = n_spliced = 0
     all_trns: list = []
     tmpdir = tempfile.mkdtemp(prefix="nr_genome_", dir=outdir)
 
     def finish_rows(rows):
         """rows -> BAM-ready tuples with base-level CIGARs."""
+        nonlocal n_spliced
         q_segs, t_segs, seg_of = [], [], []
         for (rid, ts, flag, name, blocks, codes, qual, _mq) in rows:
             stored = COMPLEMENT[codes][::-1] if flag & 16 else codes
@@ -863,6 +934,8 @@ def genome_stage(spec, outdir, sample, genome_ref, tag_map, device,
                         cig.append((t_gap, "N"))
                     if q_gap > 0:
                         cig.append((q_gap, "I"))
+                        if not t_gap:
+                            nm_sum += q_gap
                 cig += [(int(n), op) for n, op in
                         cig_re.findall(cigars[si])]
                 as_sum += int(scores[si])
@@ -870,6 +943,7 @@ def genome_stage(spec, outdir, sample, genome_ref, tag_map, device,
             tail = len(stored) - blocks[-1][3]
             if tail:
                 cig.append((tail, "S"))
+            n_spliced += any(op == "N" for _, op in cig)
             out.append((rid, ts, flag, name, cig, stored, squal, mq,
                         {"NM": nm_sum, "AS": as_sum,
                          "CB": cb, "UB": ub, "XT": xt}))
@@ -878,20 +952,34 @@ def genome_stage(spec, outdir, sample, genome_ref, tag_map, device,
     for bi, batch in enumerate(
             fastq.iter_batches(sub_path, batch_size, max_len=4096)):
         with trace.span("genome.align") as sp:
-            rec, exons = galigner.align_with_exons(batch.codes,
-                                                   batch.lengths)
-            prim = rec.flag < 20                     # utils.py:812
-            rows = []
-            for r in np.where(prim)[0]:
-                i = int(rec.read_idx[r])
-                name = batch.names[i]
-                if name not in tag_map:
-                    continue
-                rows.append((int(rec.ref_id[r]), int(rec.tstart[r]),
-                             int(rec.flag[r]), name, exons[r],
-                             batch.codes[i, :batch.lengths[i]].copy(),
-                             batch.quals[i], int(rec.mapq[r])))
-            rows.sort(key=lambda x: (x[0], x[1]))
+            ch = galigner._chain(batch.codes, batch.lengths)
+            rec = extract_records(ch, gindex)
+            with trace.span("genome.exons"):
+                exons = extract_exons(ch, rec)
+                tagged = np.asarray([n in tag_map for n in batch.names],
+                                    bool)
+                prim = rec.flag < 20                 # utils.py:812
+                rows = []
+                n_blocks = n_trimmed = n_dropped = 0
+                for r in np.where(prim & tagged[rec.read_idx])[0]:
+                    i = int(rec.read_idx[r])
+                    blocks, nt, nd = clip_exon_blocks(exons[r])
+                    n_blocks += len(exons[r])
+                    n_trimmed += nt
+                    n_dropped += nd
+                    rows.append((int(rec.ref_id[r]), int(rec.tstart[r]),
+                                 int(rec.flag[r]), batch.names[i], blocks,
+                                 batch.codes[i, :batch.lengths[i]].copy(),
+                                 batch.quals[i], int(rec.mapq[r])))
+                rows.sort(key=lambda x: (x[0], x[1]))
+                on = tagged[rec.read_idx]
+                pairs = np.unique(np.stack([rec.read_idx[on],
+                                            rec.ref_id[on]]), axis=1)
+                _, per_read = np.unique(pairs[0], return_counts=True)
+            trace.count("genome.blocks", n_blocks)
+            trace.count("genome.blocks_trimmed", n_trimmed)
+            trace.count("genome.blocks_dropped", n_dropped)
+            trace.count("genome.partner_reads", int((per_read > 1).sum()))
         parts["align_s"] += sp.seconds
         with trace.span("genome.cigar") as sp:
             done_rows = finish_rows(rows)
@@ -928,6 +1016,8 @@ def genome_stage(spec, outdir, sample, genome_ref, tag_map, device,
         counting.trans_counts_table(all_trns).to_csv(
             f"{outdir}/{sample}_trns_ct.csv", index=None)
     parts["write_s"] = sp.seconds
+    trace.count("genome.records", n_rows)
+    trace.count("genome.spliced_records", n_spliced)
     log(f"genome stage: {n_rows} tagged records → {bam_path} "
         f"(streamed {len(spills)}-spill merge, {time.time() - t0:.1f}s)")
     return n_rows, {k: round(v, 3) for k, v in parts.items()}
@@ -943,22 +1033,23 @@ def _load_whitelist(path, spec_name):
     return whitelist.load(path, min_genes=min_genes)
 
 
-def _tag_map_from_df(df):
-    """name -> (CB, UB, XT) for accepted reads; XT parsed from the decon
-    read name {qname}_{qstrt}_{qend}_{flag}_{trans}.
+def _tag_map_from_df(df, trns):
+    """name -> (CB, UB, XT) for accepted reads; trns holds each row's
+    transcript (DeconRun.transcripts), XT.
 
-    Deliberate fix of a reference defect: the reference takes
-    `name.split('_')[4]` (utils.py:745), which truncates transcript names
-    containing '_' (the bundled panels have such names, e.g.
-    `RUNX1T1-204|ENST00000422361.6_2450`). The transcript is the last
-    field, so joining parts[4:] recovers it exactly."""
+    Deliberate fix of two reference defects, both of which parse XT from
+    the decon read name {qname}_{qstrt}_{qend}_{flag}_{trans}: the
+    reference takes `name.split('_')[4]` (utils.py:745), which truncates
+    transcript names containing '_' (the bundled panels have such names,
+    e.g. `RUNX1T1-204|ENST00000422361.6_2450`), and a qname holding '_'
+    (PacBio's m64012_190920_173625/.../ccs) shifts every field. The
+    transcript comes from the decon record instead."""
     out = {}
-    for name, bc, umi, status in zip(df.name, df.bc, df.umi, df.status):
+    for name, bc, umi, status, t in zip(df.name, df.bc, df.umi, df.status,
+                                        trns):
         if status != ACCEPT:
             continue
-        parts = name.split("_")
-        trns = "_".join(parts[4:]) if len(parts) > 4 else ""
-        out[name] = (bc, umi, trns)
+        out[name] = (bc, umi, t)
     return out
 
 
@@ -1137,9 +1228,10 @@ def _run_pipeline(mode, infile, outdir, sample, trns_ref, genome_ref,
         tele.stage(st)
         if genome_ref and os.path.isfile(genome_ref):
             with trace.span("genome_tag") as st:
-                n_bam, parts = genome_stage(spec, outdir, sample, genome_ref,
-                                            _tag_map_from_df(df), dev,
-                                            force=force)
+                n_bam, parts = genome_stage(
+                    spec, outdir, sample, genome_ref,
+                    _tag_map_from_df(df, run.transcripts()), dev,
+                    force=force)
             tele.stage(st, records=n_bam, **parts)
     elif mode in ("5p10XTCR", "3p10XTCR_nuc"):
         with trace.span("dedup") as st:
@@ -1175,10 +1267,14 @@ def _run_pipeline(mode, infile, outdir, sample, trns_ref, genome_ref,
         with trace.span("count_matrix") as st:
             acc = df[df.status == ACCEPT]
             umi_codes = res["umi"][(df.status == ACCEPT).to_numpy()]
-            trns = [n.split("/ccs_")[-1].split("_") for n in acc.name]
-            trns = ["_".join(t[3:]) if len(t) > 3 else "" for t in trns]
+            # the transcript of each accepted candidate's decon record:
+            # the reference parses it from the name after '/ccs_'
+            # (utils.py:1483-1486), which a qname holding '_' there shifts
+            all_trns = run.transcripts()
+            trns = [all_trns[i] for i in
+                    np.flatnonzero((df.status == ACCEPT).to_numpy())]
             trns = [t.split("|")[-1].split("_")[0] if "|" in t else t
-                    for t in trns]                      # utils.py:1483-1486
+                    for t in trns]                      # utils.py:1485-1486
             with gzip.open(f"{outdir}/{sample}_quads.json.gz", "wt") as f:
                 json.dump(counting.quads_dict(acc.bc.to_numpy(), umi_codes,
                                               trns), f)
