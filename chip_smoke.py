@@ -449,18 +449,14 @@ def fused_chain(dev, index, codes, lengths):
 def fused_slot_windows(dev, spec, index, codes, lengths, S=4):
     """The flank windows of all B*S record slots that the fused step's
     adapter scan sees for one bucket batch (empty slots included)."""
-    import numpy as np
     import torch
 
     from nanoranger_torch.stages.cli_step import _extend_slots, _records_exact
     from nanoranger_torch.stages.decon import _gather_flanks
     tc, tl, ch = fused_chain(dev, index, codes, lengths)
-    ref_lens = torch.from_numpy(index.ref_lens.astype(np.int32)).to(dev)
+    ref_flat, ref_off, ref_lens = index.ref_tensors(dev)
     rec = _records_exact(ch, tl, ref_lens, S)
-    ext = _extend_slots(
-        tc, tl, rec, torch.from_numpy(np.concatenate(index.seq_codes)).to(
-            dev), torch.from_numpy(index.ref_offset.astype(np.int32)).to(dev),
-        ref_lens, S)
+    ext = _extend_slots(tc, tl, rec, ref_flat, ref_off, ref_lens, S)
     B = codes.shape[0]
     f = spec.flank
     return _gather_flanks(

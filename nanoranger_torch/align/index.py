@@ -34,12 +34,15 @@ class PanelIndex:
     names: list
     seq_codes: list           # list of np int8 arrays (for extension)
     ref_lens: np.ndarray      # (R,)
-    ref_offset: np.ndarray    # (R,) concatenated-layout offsets (host only)
+    ref_offset: np.ndarray    # (R,) concatenated-layout offsets
     # sorted-by-hash flat minimizer arrays:
     hashes: np.ndarray        # (A,) uint32 sorted
     tpos: np.ndarray          # (A,) int32 position within its ref
     ref_id: np.ndarray        # (A,) int32
     strand: np.ndarray        # (A,) int32
+    # ref_tensors' copies, one a device
+    _on_device: dict = dataclasses.field(default_factory=dict, repr=False,
+                                         compare=False)
 
     @classmethod
     def build(cls, names: list, seqs: list) -> "PanelIndex":
@@ -86,6 +89,32 @@ class PanelIndex:
     @property
     def n_refs(self) -> int:
         return len(self.names)
+
+    def ref_tensors(self, device) -> tuple:
+        """(ref_flat, ref_off, ref_lens) on `device`: every reference's
+        bases in one int8 tensor, the int32 offset of each reference in it
+        and its int32 length. The one device form of the reference, which
+        the fused step's tables and every extension of chain ends
+        (ops/extend.extend_spans) take; built at the first call for a
+        device and kept for the index's life."""
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev not in self._on_device:
+            n_bases = int(self.ref_lens.astype(np.int64).sum())
+            if n_bases >= 1 << 31:
+                raise ValueError(
+                    f"the reference holds {n_bases} bases; its device form "
+                    "addresses them with int32 offsets, which reach "
+                    "2^31 - 1")
+            flat = (np.concatenate([np.asarray(s, np.int8)
+                                    for s in self.seq_codes])
+                    if self.n_refs else np.zeros(1, np.int8))
+            self._on_device[dev] = tuple(
+                torch.from_numpy(a).to(dev) for a in (
+                    flat, self.ref_offset.astype(np.int32),
+                    self.ref_lens.astype(np.int32)))
+        return self._on_device[dev]
 
 
 def _sketch(codes: np.ndarray, lens: np.ndarray, m: int):

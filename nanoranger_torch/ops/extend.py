@@ -8,6 +8,10 @@ with FREE far ends, and the max-scoring cell gives the (query, target)
 extension lengths. Scoring is minimap2 map-ont-flavored (match 2, mismatch
 -4, gap -4 linear) over short flanks (F <= 48): plain torch ops, one row
 step per query base over all record ends at once.
+
+extend_spans is the one extension loop. Its two callers are adapters: the
+fused step's slots (stages/cli_step._extend_slots) and the unfused path's
+AlignmentRecords (extend_records_host), both on the reads' device.
 """
 
 from __future__ import annotations
@@ -67,86 +71,108 @@ def extend_scores(q, qlen, t, tlen, F: int = F_EXT):
     return bi, bj
 
 
+def extend_spans(codes, read_idx, rlen, strand, ref_id, spans, active,
+                 ref_flat, ref_off, ref_lens, F: int = F_EXT,
+                 rounds: int = 4):
+    """The extension of chain ends, the one routine: rows are records,
+    read_idx (R,) maps each to its row of `codes` (B, L) int8 and rlen (R,)
+    gives that read's length; spans = (s_qs, s_qe, ts, te), each (R,),
+    the stored-orientation query span and the reference span of each
+    record on reference ref_id (R,) of strand (R,). The reference is
+    ref_flat with each reference's offset ref_off and length ref_lens
+    (PanelIndex.ref_tensors). Every tensor is on the reads' device.
+
+    Each round runs extend_scores over both ends of every row at once and
+    moves the spans of the `active` rows; an end that consumed (nearly) the
+    whole flank may still have drift left, so its row stays active and
+    re-extends from the new boundary (each round must independently gain
+    score; rounds*F bounds the total drift covered). A round after the
+    first runs only while some row is active (one host read of
+    `active.any()`): the rounds after none is change nothing.
+
+    Returns the extended (s_qs, s_qe, ts, te)."""
+    L = codes.shape[1]
+    dev = codes.device
+    R = read_idx.shape[0]
+    s_qs, s_qe, ts, te = spans
+    rid = ref_id.long()
+    roff = ref_off[rid]
+    rl = ref_lens[rid]
+
+    comp = torch.from_numpy(COMPLEMENT).to(dev)
+    jj = torch.arange(F, dtype=torch.int32, device=dev)[None]
+    rev = strand[:, None] == 1
+    neg = torch.tensor(-1, dtype=torch.int8, device=dev)
+
+    def stored_gather(x):
+        """stored-orientation bases at read positions x (R, F)."""
+        xc = x.clamp(0, L - 1)
+        pos = torch.where(rev, rlen[:, None] - 1 - xc, xc).clamp(0, L - 1)
+        v = codes[read_idx[:, None], pos.long()]
+        return torch.where(rev, comp[v.long()], v)
+
+    def ref_gather(y):
+        yc = (roff[:, None] + y.clamp(min=0)).clamp(0, ref_flat.shape[0] - 1)
+        return ref_flat[yc.long()]
+
+    for rnd in range(rounds):
+        if rnd and not bool(active.any()):
+            break
+        lo_qn = s_qs.clamp(max=F)
+        lo_tn = ts.clamp(max=F)
+        hi_qn = (rlen - s_qe).clamp(0, F)
+        hi_tn = (rl - te).clamp(0, F)
+        q_lo = torch.where(jj < lo_qn[:, None],
+                           stored_gather(s_qs[:, None] - 1 - jj), neg)
+        t_lo = torch.where(jj < lo_tn[:, None],
+                           ref_gather(ts[:, None] - 1 - jj), neg)
+        q_hi = torch.where(jj < hi_qn[:, None],
+                           stored_gather(s_qe[:, None] + jj), neg)
+        t_hi = torch.where(jj < hi_tn[:, None],
+                           ref_gather(te[:, None] + jj), neg)
+        qf = torch.cat([q_lo, q_hi]).to(torch.int8)
+        tf = torch.cat([t_lo, t_hi]).to(torch.int8)
+        qn = torch.cat([lo_qn, hi_qn]).to(torch.int32)
+        tn = torch.cat([lo_tn, hi_tn]).to(torch.int32)
+        bi, bj = extend_scores(qf, qn, tf, tn, F=F)
+        qi_l, qi_r = bi[:R], bi[R:]
+        tj_l, tj_r = bj[:R], bj[R:]
+        s_qs = torch.where(active, s_qs - qi_l, s_qs)
+        s_qe = torch.where(active, s_qe + qi_r, s_qe)
+        ts = torch.where(active, ts - tj_l, ts)
+        te = torch.where(active, te + tj_r, te)
+        capped = ((qi_l >= F - 4) | (tj_l >= F - 4) |
+                  (qi_r >= F - 4) | (tj_r >= F - 4)) & \
+            ((qi_l + qi_r + tj_l + tj_r) > 0)
+        active = active & capped
+    return s_qs, s_qe, ts, te
+
+
 def extend_records_host(rec, index, codes, lengths, device, F: int = F_EXT,
                         max_rounds: int = 4):
-    """Refine record spans in place; returns per-record (ql, tl, qr, tr)
-    total extension amounts (stored-orientation left/right). codes: (B, L)
-    int8 numpy reads; the DP runs on `device`.
-
-    Iterative: ends whose extension hits the flank cap re-extend from the
-    new boundary (each round must independently gain score); max_rounds*F
-    bounds the total drift covered."""
+    """Refine the spans of AlignmentRecords `rec` in place through
+    extend_spans on `device`; returns per-record (ql, tl, qr, tr) total
+    extension amounts (stored-orientation left/right). codes: (B, L) int8
+    reads, numpy or already on `device`; lengths: (B,) numpy."""
     R = len(rec)
     if R == 0:
         return np.zeros((0, 4), np.int32)
-    rlen = lengths[rec.read_idx].astype(np.int64)
-    sqs = np.where(rec.strand == 1, rlen - rec.qend, rec.qstart).astype(np.int64)
-    sqe = np.where(rec.strand == 1, rlen - rec.qstart, rec.qend).astype(np.int64)
-    tstart = rec.tstart.astype(np.int64).copy()
-    tend = rec.tend.astype(np.int64).copy()
-    total = np.zeros((R, 4), np.int64)
-
-    stored_cache: dict = {}
-
-    def stored_of(r):
-        key = (int(rec.read_idx[r]), int(rec.strand[r]))
-        s = stored_cache.get(key)
-        if s is None:
-            i, n = key[0], int(rlen[r])
-            s = codes[i, :n]
-            if key[1] == 1:
-                s = COMPLEMENT[s][::-1]
-            stored_cache[key] = s
-        return s
-
-    active = np.arange(R)
-    for _ in range(max_rounds):
-        n_act = len(active)
-        if n_act == 0:
-            break
-        qf = np.full((2 * n_act, F), -1, np.int8)
-        tf = np.full((2 * n_act, F), -1, np.int8)
-        qn = np.zeros(2 * n_act, np.int32)
-        tn = np.zeros(2 * n_act, np.int32)
-        for k, r in enumerate(active):
-            stored = stored_of(r)
-            ref = index.seq_codes[int(rec.ref_id[r])]
-            # left end: away-from-chain = toward read start / ref start
-            lo_q = stored[max(int(sqs[r]) - F, 0): int(sqs[r])][::-1]
-            lo_t = ref[max(int(tstart[r]) - F, 0): int(tstart[r])][::-1]
-            qf[2 * k, :len(lo_q)] = lo_q
-            tf[2 * k, :len(lo_t)] = lo_t
-            qn[2 * k], tn[2 * k] = len(lo_q), len(lo_t)
-            # right end: toward read end / ref end
-            hi_q = stored[int(sqe[r]): int(sqe[r]) + F]
-            hi_t = ref[int(tend[r]): int(tend[r]) + F]
-            qf[2 * k + 1, :len(hi_q)] = hi_q
-            tf[2 * k + 1, :len(hi_t)] = hi_t
-            qn[2 * k + 1], tn[2 * k + 1] = len(hi_q), len(hi_t)
-
-        qi, tj = extend_scores(torch.from_numpy(qf).to(device),
-                               torch.from_numpy(qn).to(device),
-                               torch.from_numpy(tf).to(device),
-                               torch.from_numpy(tn).to(device), F=F)
-        qi = qi.cpu().numpy().reshape(n_act, 2).astype(np.int64)
-        tj = tj.cpu().numpy().reshape(n_act, 2).astype(np.int64)
-
-        sqs[active] -= qi[:, 0]
-        sqe[active] += qi[:, 1]
-        tstart[active] -= tj[:, 0]
-        tend[active] += tj[:, 1]
-        total[active, 0] += qi[:, 0]
-        total[active, 1] += tj[:, 0]
-        total[active, 2] += qi[:, 1]
-        total[active, 3] += tj[:, 1]
-        # an end that consumed (nearly) the whole flank may still have
-        # drift left — re-extend those records from the new boundary
-        capped = ((qi >= F - 4) | (tj >= F - 4)).any(axis=1) & \
-            ((qi + tj).sum(axis=1) > 0)
-        active = active[capped]
-
-    rec.tstart = tstart
-    rec.tend = tend
-    rec.qstart = np.where(rec.strand == 1, rlen - sqe, sqs)
-    rec.qend = np.where(rec.strand == 1, rlen - sqs, sqe)
-    return total
+    dev = torch.device(device)
+    rlen = np.asarray(lengths)[rec.read_idx].astype(np.int64)
+    rev = rec.strand == 1
+    span0 = [np.asarray(x, np.int64) for x in (
+        np.where(rev, rlen - rec.qend, rec.qstart),
+        np.where(rev, rlen - rec.qstart, rec.qend), rec.tstart, rec.tend)]
+    if not isinstance(codes, torch.Tensor):
+        codes = torch.from_numpy(np.ascontiguousarray(codes))
+    tt = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)
+    sqs, sqe, ts, te = (x.cpu().numpy() for x in extend_spans(
+        codes.to(dev), tt(rec.read_idx), tt(rlen),
+        tt(rec.strand), tt(rec.ref_id), [tt(x) for x in span0],
+        torch.ones(R, dtype=torch.bool, device=dev),
+        *index.ref_tensors(dev), F=F, rounds=max_rounds))
+    rec.tstart, rec.tend = ts, te
+    rec.qstart = np.where(rev, rlen - sqe, sqs)
+    rec.qend = np.where(rev, rlen - sqs, sqe)
+    return np.stack([span0[0] - sqs, span0[2] - ts, sqe - span0[1],
+                     te - span0[3]], axis=1)

@@ -5,8 +5,8 @@ Counterpart of the JAX package's pipeline.py, flag-compatible with it
 -> minimizer sketch -> anchor lookup and sort -> chain DP -> record
 extraction -> end extension -> adapter scan (whole flank or sliding
 sub-windows) -> subread and BC-UMI slices, by default fused into one step
-a length-bucketed batch (stages/cli_step.py; NANORANGER_NO_FAST=1 or
-fast=False runs the unfused path, batch by batch); the
+a length-bucketed batch (stages/cli_step.py; fast=False runs the unfused
+path, batch by batch), written in input order by one sink; the
 barcoded modes go on to the staged whitelist match (exact tiers where the
 whitelist has them, one-vs-all DP, banded UMI rescore) and their
 mode-specific tables; the clone modes run the native clonotyper over the
@@ -80,7 +80,7 @@ from .stages import clones as clone_stage
 from .stages import counting
 from .stages.barcode import (ACCEPT, BAD_UMI, DP_PENDING, LOW_AS,
                              BarcodeMatcher)
-from .stages.cli_step import assemble_batch, build_cli_step
+from .stages.cli_step import BatchAssembly, assemble_batch, build_cli_step
 from .stages.decon import run_decon
 
 DATA_DIR = os.environ.get(
@@ -100,19 +100,6 @@ MODE_DEFAULTS = {
 }
 
 MATCH_LQ = 96      # candidate width of the barcode match
-
-
-def _matcher_in_step(dev: torch.device) -> bool:
-    """Whether the fused step runs the exact-class whitelist pass: on CUDA.
-    On the CPU the matcher stays out of the step, as in the JAX package, and
-    match_barcodes matches every candidate after the stream."""
-    return dev.type == "cuda"
-
-
-def _inflight() -> int:
-    """Fused-path queue depth: batches dispatched beyond the one being
-    drained (see dispatch() in DeconRun._run_fast)."""
-    return int(os.environ.get("NANORANGER_INFLIGHT", "3"))
 
 
 def log(msg: str):
@@ -166,21 +153,151 @@ class Telemetry:
         os.replace(tmp, path)
 
 
+class DeconSink:
+    """The decon stream's outputs, written strictly in input order.
+
+    Every producer hands in its products as a BatchAssembly
+    (stages/cli_step.py) whose row k is one read: the slice of each list
+    between read_bounds[k-1] and read_bounds[k]. put() takes such a part
+    with each row's input ordinal and writes a read once every read before
+    it is written. The sink is the only code that appends to the subread
+    and BC-UMI writers, the candidate store, the transcript of each
+    candidate (the panel reference of its decon record), the eds and polyA
+    rows, the raw barcode counts and the match rows of the fused step's
+    exact-class pass (umi_len given), which close() returns as
+    DeconRun.prematch."""
+
+    def __init__(self, sub_path: str, bcumi_path: str,
+                 umi_len: int | None):
+        self.fsub = fastq.FastqWriter(sub_path)
+        self.fbc = FastaWriter(bcumi_path)
+        # spill-backed candidate store: bounded resident memory however
+        # many reads stream through
+        self.cands = CandidateStore()
+        self.cand_refs = array("i")
+        self.eds_rows: list = []
+        self.polyA: list = []
+        self.raw_counts: dict = {}
+        self.umi_len = umi_len
+        # bc_idx, score, status, umi (None: matched after the stream)
+        self.match = None if umi_len is None else ([], [], [], [])
+        self.n_sub = 0
+        self._held: dict = {}          # ordinal -> (part, refs, lo, hi)
+        self._cursor = 0
+
+    def put(self, part, refs, seqs):
+        """Take the reads of `part`: row k has input ordinal seqs[k] (-1:
+        nothing to write), refs the panel reference of each candidate."""
+        if len(refs) != len(part.bcumi_names):
+            raise RuntimeError(f"{len(refs)} transcripts for "
+                               f"{len(part.bcumi_names)} candidates")
+        lo = (0, 0, 0, 0, 0)
+        for s, hi in zip(seqs, part.read_bounds):
+            if s >= 0:
+                self._held[int(s)] = (part, refs, lo, hi)
+            lo = hi
+        while self._cursor in self._held:
+            self._write(*self._held.pop(self._cursor))
+            self._cursor += 1
+
+    def _write(self, part, refs, lo, hi):
+        for j in range(lo[0], hi[0]):
+            self.fsub.write(part.sub_names[j], part.sub_seqs[j],
+                            part.sub_quals[j])
+        for j in range(lo[1], hi[1]):
+            self.fbc.write(part.bcumi_names[j], part.bcumi_seqs[j])
+            self.cands.append(part.bcumi_names[j], part.bcumi_seqs[j])
+            self.cand_refs.append(refs[j])
+        if self.match is not None:
+            for col, rows in zip(self.match, (
+                    part.match_bc, part.match_score, part.match_status,
+                    part.match_umi)):
+                col.extend(rows[lo[1]:hi[1]])
+        self.eds_rows.extend(part.eds_rows[lo[2]:hi[2]])
+        self.polyA.extend(part.polyA[lo[3]:hi[3]])
+        for key in part.raw_keys[lo[4]:hi[4]]:
+            self.raw_counts[key] = self.raw_counts.get(key, 0) + 1
+        self.n_sub += hi[0] - lo[0]
+
+    def close(self):
+        """Close the writers once every read is written; returns the match
+        rows (None without them): per-candidate arrays bc_idx, score,
+        status, umi, and pending, the rows match_barcodes matches (a
+        deferred read's candidates and the DP_PENDING rows)."""
+        if self._held:       # every read handed in must have been written
+            raise RuntimeError(
+                f"order-restoring writer stalled at read {self._cursor} "
+                f"with {len(self._held)} assembled reads pending")
+        self.fsub.close()
+        self.fbc.close()
+        if self.match is None:
+            return None
+        bc, score, status, umis = self.match
+        umi = np.full((len(bc), self.umi_len), PAD, np.int8)
+        pend = np.zeros(len(bc), bool)
+        for i, u in enumerate(umis):
+            if u is None:
+                pend[i] = True
+            else:
+                umi[i] = u
+        status = np.asarray(status, np.int32)
+        pend |= status == DP_PENDING
+        return {"bc_idx": np.asarray(bc, np.int32),
+                "score": np.asarray(score, np.int32), "status": status,
+                "umi": umi, "pending": pend}
+
+
+def _decon_part(spec, index, sample, ch, batch):
+    """The unfused decon of a read batch whose chains `ch` came from
+    PanelAligner._chain: records, their extended ends and run_decon's
+    products, as a BatchAssembly of the batch's reads in order (no match
+    rows), and the panel reference of each candidate. Both the unfused
+    stream and the fused stream's reruns of deferred reads make theirs
+    here."""
+    dev_codes = ch["dev_codes"]
+    lengths = np.asarray(batch.lengths, np.int32)
+    rec = extract_records(ch, index)
+    # base-level DP extension of chain ends: qstart/qend match minimap2's
+    # extended spans, not terminal anchors
+    extend_records_host(rec, index, dev_codes, lengths, dev_codes.device)
+    out = run_decon(spec, batch.codes, lengths, list(batch.names),
+                    list(batch.quals), rec, index.names, sample,
+                    device=dev_codes.device, dev_codes=dev_codes)
+    part = BatchAssembly()
+    part.sub_names, part.sub_seqs, part.sub_quals = \
+        out.sub_names, out.sub_seqs, out.sub_quals
+    part.bcumi_names, part.bcumi_seqs = out.bcumi_names, out.bcumi_seqs
+    part.eds_rows, part.polyA = out.eds_rows, out.polyA
+    raw = out.raw_rows or []
+    part.raw_keys = [key for _, key in raw]
+    # each output's records are in record order, and records in read
+    # order: read k's outputs end where the next read's begin
+    reads = np.arange(len(batch))
+    ends = [np.searchsorted(rec.read_idx[np.asarray(r, np.int64)], reads,
+                            side="right").tolist() for r in (
+        out.sub_rec, out.bcumi_rec,
+        out.eds_rec if out.eds_rec is not None else [],
+        out.bcumi_rec if spec.bcumi_rule == "rev_slideseq" else [],
+        [r for r, _ in raw])]
+    part.read_bounds = list(zip(*ends))
+    return part, rec.ref_id[out.bcumi_rec].tolist()
+
+
 class DeconRun:
     """Streamed align+decon over an input fastq, accumulating BC-UMI
     candidates and the per-mode statistics and writing the subread/BCUMI
-    artifacts in input order.
+    artifacts in input order (DeconSink).
 
-    The default with data_shards <= 1 is the FUSED path
-    (stages/cli_step.py, `_run_fast`): one call per length-bucketed batch
-    covering seed -> chain DP -> record extraction -> extension -> flank
-    scan -> BC-UMI slice -> the exact-class whitelist pass, whose artifacts
-    are byte-identical to the unfused path's (reads with more kept chains
-    than the step's slots are rerun through it). NANORANGER_NO_FAST=1 or
-    fast=False takes the unfused path: batch by batch, records on the host
-    between the device passes.
+    The default with data_shards <= 1 is the FUSED stream (_FusedStream,
+    stages/cli_step.py): one call per length-bucketed batch covering seed
+    -> chain DP -> record extraction -> extension -> flank scan -> BC-UMI
+    slice -> the exact-class whitelist pass, whose artifacts are
+    byte-identical to the unfused stream's (reads with more kept chains
+    than the step's slots are rerun through the unfused decon).
+    fast=False takes the unfused stream: batch by batch, records on the
+    host between the device passes.
 
-    data_shards > 1 runs the unfused path over the data cells of a mesh:
+    data_shards > 1 runs the unfused stream over the data cells of a mesh:
     batch i chains on cell i % data_shards (its flank scan runs where its
     codes are) while earlier batches are assembled, up to data_shards in
     flight, drained strictly in input order, so the artifacts are
@@ -195,28 +312,23 @@ class DeconRun:
                  batch_size=2048, max_len=4096, force=False, data_shards=1,
                  matcher=None, fast=None):
         self.spec = spec
+        self.sample = sample
+        self.trns_ref = trns_ref
         self.prematch = None
         self.n_deferred = 0
-        # the fused path's index: its tensors' bytes and the seconds to
-        # build them (the unfused path leaves both None)
+        # the fused stream's index: its tensors' bytes and the seconds to
+        # build them (the unfused stream leaves both None)
         self.index_bytes = None
         self.index_s = None
+        self.eds_rows: list = []
+        self.raw_counts: dict = {}
+        self.polyA: list = []
+        self.resumed = False
         t0 = time.time()
         sub_kind = "VDJ" if spec.name in (
             "3pXCR_slideseq", "3p10XTCR", "3p10XTCR_nuc") else "deconcat"
         self.sub_path = f"{outdir}/{sample}_{sub_kind}.fastq.gz"
         self.bcumi_path = f"{outdir}/{sample}_BCUMI.fasta.gz"
-        # spill-backed candidate store: bounded resident memory however
-        # many reads stream through
-        self.cands = CandidateStore()
-        # the panel reference of each candidate's decon record, in the
-        # store's order (None for a run resumed from its artifacts)
-        self.cand_refs = array("i")
-        self.trns_ref = trns_ref
-        self.eds_rows: list = []
-        self.raw_counts: dict = {}
-        self.polyA: list = []
-        self.resumed = False
         # resume requires the stats artifacts too: a crash between the
         # decon writers closing and write_eds() would otherwise leave the
         # eds/polyA stats missing for good without --force
@@ -226,12 +338,15 @@ class DeconRun:
         if spec.name == "3p10XGEX":
             need.append(rc_path)
         if not force and all(os.path.isfile(p) for p in need):
+            cands = CandidateStore()
             for nm, sq in iter_fasta(self.bcumi_path):
-                self.cands.append(nm, sq)
+                cands.append(nm, sq)
             if spec.name == "3p10XGEX":
                 rc = pd.read_csv(rc_path, index_col=0)
                 self.raw_counts = dict(zip(rc.index, rc.iloc[:, 0]))
+            self.cands = cands
             self.resumed = True
+            # no decon records: transcripts() reads them from the names
             self.cand_refs = None
             self.n_reads = self.n_sub = -1
             log(f"resume: decon artifacts present, loaded "
@@ -241,386 +356,73 @@ class DeconRun:
 
         with trace.span("decon.index") as sp:
             self.index = PanelIndex.from_fasta(trns_ref)
+        dev = torch.device(device)
         if fast is None:
-            fast = (data_shards <= 1 and
-                    os.environ.get("NANORANGER_NO_FAST", "") != "1")
+            fast = data_shards <= 1
+        step_match = fast and matcher is not None and spec.barcode is not None
+        sink = DeconSink(self.sub_path, self.bcumi_path,
+                         spec.barcode.umi_len if step_match else None)
         if fast:
-            self._run_fast(spec, infile, sample, torch.device(device),
-                           batch_size, max_len, matcher, t0, sp.seconds)
-            return
-        # batch i chains on data cell i % data_shards, the cells laid over
-        # the devices round-robin
-        aligner = PanelAligner(
-            self.index, device,
-            devices=mesh_devices(device) if data_shards > 1 else None)
-        n_reads = n_sub = 0
-        pending: deque = deque()
-        with fastq.FastqWriter(self.sub_path) as fsub, \
-                FastaWriter(self.bcumi_path) as fbc:
-
-            def drain():
-                nonlocal n_reads, n_sub
-                batch, ch = pending.popleft()
-                dev = ch["dev_codes"].device
-                rec = extract_records(ch, self.index)
-                # base-level DP extension of chain ends: qstart/qend match
-                # minimap2's extended spans, not terminal anchors
-                extend_records_host(rec, self.index, batch.codes,
-                                    np.asarray(batch.lengths), dev)
-                out = run_decon(spec, batch.codes, np.asarray(batch.lengths),
-                                batch.names, batch.quals, rec,
-                                self.index.names, sample, device=dev,
-                                dev_codes=ch["dev_codes"])
-                for nm, sq, ql in zip(out.sub_names, out.sub_seqs,
-                                      out.sub_quals):
-                    fsub.write(nm, sq, ql)
-                for nm, sq, ri in zip(out.bcumi_names, out.bcumi_seqs,
-                                      out.bcumi_rec):
-                    fbc.write(nm, sq)
-                    self.cands.append(nm, sq)
-                    self.cand_refs.append(int(rec.ref_id[ri]))
-                self.eds_rows.extend(out.eds_rows)
-                self.polyA.extend(out.polyA)
-                for k, v in out.raw_bc_counts.items():
-                    self.raw_counts[k] = self.raw_counts.get(k, 0) + v
-                n_reads += len(batch)
-                n_sub += len(out.sub_names)
-
-            for i, batch in enumerate(fastq.iter_batches(
-                    infile, batch_size, max_len=max_len)):
-                # queue the batch's device work before draining older
-                # batches, so up to data_shards cells chain at once
-                pending.append((batch, aligner._chain(
-                    batch.codes, batch.lengths, shard=i % data_shards)))
-                if len(pending) > data_shards:
-                    drain()
-            while pending:
-                drain()
-        self.n_reads = n_reads
-        self.n_sub = n_sub
-        log(f"align+decon: {n_reads} reads → {n_sub} subreads, "
-            f"{len(self.cands)} BC-UMI candidates "
-            f"({time.time() - t0:.1f}s)")
-
-    def _run_fast(self, spec, infile, sample, dev, batch_size, max_len,
-                  matcher, t0, index_s):
-        """Fused path: one step call per batch (stages/cli_step.py) on
-        `dev`; the host assembles the artifacts from the downloaded slot
-        arrays.
-
-        Reads dispatch in length buckets Lb in {1024, 2048, max_len}, each
-        batch up to batch_size reads of width Lb: ONT reads are mostly
-        short, and the chain's anchor slots grow with the width. Each read
-        carries its input ordinal and an order-restoring writer emits the
-        artifacts strictly in input order, so bucketing changes nothing in
-        the artifact byte streams. A batch goes to the step with its filled
-        rows only: eager kernels take any row count, where the JAX step
-        pads every batch to one compiled shape.
-
-        Up to 1 + NANORANGER_INFLIGHT (default 3) batches are in flight:
-        the card computes ahead while the host downloads and assembles.
-        Reads the step defers (more kept chains than its slots, or an
-        anchor overflow) are rerun through the unfused path in windows of
-        at most FLUSH_BATCHES batches and DEFER_CAP reads, padded to
-        max_len, and interleaved back in read order.
-
-        On the CPU the matcher stays out of the step, as in the JAX
-        package: match_barcodes then matches every candidate. On CUDA the
-        step runs the exact-class pass and self.prematch carries its
-        verdicts; rows it leaves DP_PENDING, and the candidates of deferred
-        reads, are matched after the stream.
-
-        The JAX package loads its compiled step per bucket ahead of time
-        on a thread (NANORANGER_AOT), and on an accelerator runs the
-        unfused fallback once on the first batch so that the fallback's
-        compiles land early. The port has neither: the kernels build at
-        first use (kernels.py), eager torch compiles nothing, and the
-        fallback runs the step's own kernels and torch ops, and its aligner
-        takes the step's index tensors (a second copy of a
-        whole-transcriptome index would cost seconds and gigabytes).
-
-        Spans (trace.py): decon.index (the panel index, then the step's
-        tensors of it: index_s), decon.read (fastq stream + encode),
-        decon.step.issue (the step calls: the host issues the card's work;
-        eager torch waits only at the extension's re-round test),
-        decon.step.download (the wait at download), decon.assemble (host
-        artifact assembly), decon.slow (unfused reruns of deferred reads);
-        phase_s sums them, its step being issue + download."""
-        cli_matcher = matcher if _matcher_in_step(dev) else None
-        with trace.span("decon.index") as sp:
-            step, tables = build_cli_step(spec, self.index,
-                                          matcher=cli_matcher, device=dev)
-        index_arrays = tuple(tables[k] for k in
-                             ("prefix_start", "prefix_count", "windows"))
-        self.index_bytes = sum(t.nbytes for t in index_arrays)
-        self.index_s = index_s + sp.seconds
-        self._fallback_aligner = None
-        self._index_arrays = index_arrays
-        self._dev = dev
-        BUCKETS = sorted({max(256, min(1024, max_len)),
-                          max(256, min(2048, max_len)), max(256, max_len)})
-        BUCKETS_ARR = np.asarray(BUCKETS)
-        do_match = cli_matcher is not None and spec.barcode is not None
-        umi_len = spec.barcode.umi_len if do_match else 0
-        mbc, mscore, mstatus, mumi = [], [], [], []
-        n_reads = n_sub = 0
-        fsub = fastq.FastqWriter(self.sub_path)
-        fbc = FastaWriter(self.bcumi_path)
-        pending: deque = deque()
-        # batches whose reads all fit the slots are written at once;
-        # batches with deferred reads buffer until one windowed unfused
-        # run covers them (bounded by FLUSH_BATCHES / DEFER_CAP)
-        FLUSH_BATCHES, DEFER_CAP = 16, 448
-        buffer: list = []
-        buf_defers = 0
-
-        # order-restoring emission: chunks[seq] holds one read's assembled
-        # artifacts until the write cursor reaches it
-        chunks: dict = {}
-        cursor = 0
-
-        def advance():
-            nonlocal cursor, n_sub
-            while cursor in chunks:
-                asm, refs, lo, hi = chunks.pop(cursor)
-                for j in range(lo[0], hi[0]):
-                    fsub.write(asm.sub_names[j], asm.sub_seqs[j],
-                               asm.sub_quals[j])
-                for j in range(lo[1], hi[1]):
-                    fbc.write(asm.bcumi_names[j], asm.bcumi_seqs[j])
-                    self.cands.append(asm.bcumi_names[j], asm.bcumi_seqs[j])
-                    self.cand_refs.append(refs[j])
-                    if do_match:
-                        mbc.append(asm.match_bc[j])
-                        mscore.append(asm.match_score[j])
-                        mstatus.append(asm.match_status[j])
-                        mumi.append(asm.match_umi[j])
-                self.eds_rows.extend(asm.eds_rows[lo[2]:hi[2]])
-                self.polyA.extend(asm.polyA[lo[3]:hi[3]])
-                for key in asm.raw_keys[lo[4]:hi[4]]:
-                    self.raw_counts[key] = self.raw_counts.get(key, 0) + 1
-                n_sub += hi[0] - lo[0]
-                cursor += 1
-
-        def emit(asm, refs, seqs):
-            self.n_deferred += asm.n_deferred_reads
-            prev = (0, 0, 0, 0, 0)
-            for k, b in enumerate(asm.read_bounds):
-                s = int(seqs[k])
-                if s >= 0:
-                    chunks[s] = (asm, refs, prev, b)
-                prev = b
-            advance()
-
-        def flush():
-            nonlocal buf_defers
-            if not buffer:
-                return
-            rows = []                       # (buffer slot, local read idx)
-            for bi, (batch, _seqs, _n, out) in enumerate(buffer):
-                for i in np.where(out["defer"])[0]:
-                    rows.append((bi, int(i)))
-            groups_all: dict = {}
-            if rows:
-                n = len(rows)
-                # max_len width: deferred rows come from every bucket
-                cr = np.full((n, max_len), PAD, np.int8)
-                lr = np.zeros(n, np.int32)
-                nr, qr = [], []
-                for k, (bi, i) in enumerate(rows):
-                    b = buffer[bi][0]
-                    w = b.codes.shape[1]
-                    cr[k, :w] = b.codes[i]
-                    lr[k] = b.lengths[i]
-                    nr.append(b.names[i])
-                    qr.append(b.quals[i])
-                g: dict = {}
-                with trace.span("decon.slow"):
-                    for base in range(0, n, DEFER_CAP):
-                        e = min(base + DEFER_CAP, n)
-                        gi = self._slow_groups(spec, sample, cr[base:e],
-                                               lr[base:e], nr[base:e],
-                                               qr[base:e])
-                        for k, v in gi.items():
-                            g[base + k] = v
-                for k, (bi, i) in enumerate(rows):
-                    groups_all[(bi, i)] = g.get(k, {})
-            with trace.span("decon.assemble"):
-                for bi, (batch, seqs, _n, out) in enumerate(buffer):
-                    asm = assemble_batch(
-                        spec, out, batch.codes, batch.lengths, batch.names,
-                        batch.quals, self.index.names, sample,
-                        slow_fallback=lambda didx, bi=bi: {
-                            int(i): groups_all.get((bi, int(i)), {})
-                            for i in didx})
-                    refs = _fused_bcumi_refs(
-                        out, lambda i, bi=bi: groups_all.get((bi, i), {}))
-                    if len(refs) != len(asm.bcumi_names):
-                        raise RuntimeError(
-                            f"{len(refs)} transcripts for "
-                            f"{len(asm.bcumi_names)} candidates")
-                    emit(asm, refs, seqs)
-            buffer.clear()
-            buf_defers = 0
-
-        def drain():
-            nonlocal n_reads, buf_defers
-            batch, seqs, n_real, out_dev = pending.popleft()
-            with trace.span("decon.step.download"):
-                out = {k: v.cpu().numpy() for k, v in out_dev.items()}
-            n_reads += n_real
-            nd = int(out["defer"].sum())
-            buffer.append((batch, seqs, n_real, out))
-            buf_defers += nd
-            if buf_defers == 0 or len(buffer) >= FLUSH_BATCHES or \
-                    buf_defers >= DEFER_CAP:
-                flush()
-
-        def _new_acc(Lb):
-            return {"codes": np.full((batch_size, Lb), PAD, np.int8),
-                    "lengths": np.zeros(batch_size, np.int32),
-                    "names": [""] * batch_size,
-                    "quals": [b""] * batch_size,
-                    "seq": np.full(batch_size, -1, np.int64), "n": 0}
-
-        acc = {Lb: _new_acc(Lb) for Lb in BUCKETS}
-
-        def dispatch(Lb):
-            a = acc[Lb]
-            n = a["n"]
-            if n == 0:
-                return
-            trace.count(f"decon.batches.L{Lb}")
-            trace.count(f"decon.reads.L{Lb}", n)
-            with trace.span("decon.step.issue"):
-                out_dev = step(a["codes"][:n], a["lengths"][:n], tables)
-            pending.append((fastq.ReadBatch(a["codes"][:n], a["lengths"][:n],
-                                            a["names"][:n], a["quals"][:n]),
-                            a["seq"][:n], n, out_dev))
-            acc[Lb] = _new_acc(Lb)
-            if len(pending) > _inflight():
-                drain()
-
-        it = fastq.iter_batches(infile, batch_size, max_len=max_len)
-        in_batches = next_seq = 0
-        while True:
-            with trace.span("decon.read"):
-                batch = next(it, None)
-            if batch is None:
-                break
-            w = batch.codes.shape[1]
-            bl = np.minimum(np.asarray(batch.lengths), max_len)
-            # vectorized bucket routing: one sliced copy per (bucket,
-            # contiguous run)
-            bidx = np.searchsorted(BUCKETS_ARR, bl)
-            for b, Lb in enumerate(BUCKETS):
-                rows = np.nonzero(bidx == b)[0]
-                r0 = 0
-                while r0 < len(rows):
-                    a = acc[Lb]
-                    k = a["n"]
-                    take = min(batch_size - k, len(rows) - r0)
-                    sel = rows[r0:r0 + take]
-                    w2 = min(w, Lb)
-                    a["codes"][k:k + take, :w2] = batch.codes[sel, :w2]
-                    a["lengths"][k:k + take] = bl[sel]
-                    for j, i in enumerate(sel):
-                        a["names"][k + j] = batch.names[i]
-                        a["quals"][k + j] = batch.quals[i]
-                    a["seq"][k:k + take] = next_seq + sel
-                    a["n"] = k + take
-                    r0 += take
-                    if a["n"] == batch_size:
-                        dispatch(Lb)
-            next_seq += len(batch)
-            in_batches += 1
-            if in_batches % FLUSH_BATCHES == 0:
-                # anti-starvation: a rare bucket would otherwise hold the
-                # write cursor (and the reorder buffer) until it fills
-                for Lb in BUCKETS:
-                    dispatch(Lb)
-        for Lb in BUCKETS:
-            dispatch(Lb)
-        while pending:
-            drain()
-        flush()
-        advance()
-        if chunks:       # every dispatched read must have been emitted
-            raise RuntimeError(
-                f"order-restoring writer stalled at read {cursor} with "
-                f"{len(chunks)} assembled reads pending")
-        fsub.close()
-        fbc.close()
-        if do_match:
-            n = len(mbc)
-            umi = np.full((n, umi_len), PAD, np.int8)
-            pend = np.zeros(n, bool)
-            for i, u in enumerate(mumi):
-                if u is None:
-                    pend[i] = True              # deferred read: match later
-                else:
-                    umi[i] = u
-            status_arr = np.asarray(mstatus, np.int32)
-            # rows the step's exact-class pass left to the full match
-            pend |= status_arr == DP_PENDING
-            self.prematch = {
-                "bc_idx": np.asarray(mbc, np.int32),
-                "score": np.asarray(mscore, np.int32),
-                "status": status_arr,
-                "umi": umi, "pending": pend}
-        self.n_reads = n_reads
-        self.n_sub = n_sub
-        trace.count("decon.deferred_reads", self.n_deferred)
-        tr = trace.active()
-        if tr is not None:
-            sec = tr.seconds
-            self.phase_s = {
-                "read": sec("decon.read"),
-                "step": sec("decon.step.issue") + sec("decon.step.download"),
-                "assemble": sec("decon.assemble"), "slow": sec("decon.slow")}
-        log(f"align+decon (fused): {n_reads} reads → {n_sub} subreads, "
-            f"{len(self.cands)} BC-UMI candidates"
+            fs = _FusedStream(spec, self.index, sample, sink, dev,
+                              batch_size, max_len, matcher)
+            fs.run(infile)
+            self.n_reads, self.n_deferred = fs.n_reads, fs.n_deferred
+            self.index_bytes = fs.index_bytes
+            self.index_s = sp.seconds + fs.index_s
+        else:
+            self.n_reads = self._run_unfused(sink, infile, dev, batch_size,
+                                             max_len, data_shards)
+        self.prematch = sink.close()
+        self.cands, self.cand_refs = sink.cands, sink.cand_refs
+        self.eds_rows, self.polyA = sink.eds_rows, sink.polyA
+        self.raw_counts, self.n_sub = sink.raw_counts, sink.n_sub
+        if fast:
+            trace.count("decon.deferred_reads", self.n_deferred)
+            tr = trace.active()
+            if tr is not None:
+                sec = tr.seconds
+                self.phase_s = {
+                    "read": sec("decon.read"),
+                    "step": sec("decon.step.issue") +
+                    sec("decon.step.download"),
+                    "assemble": sec("decon.assemble"),
+                    "slow": sec("decon.slow")}
+        log(f"align+decon{' (fused)' if fast else ''}: {self.n_reads} "
+            f"reads → {self.n_sub} subreads, {len(self.cands)} BC-UMI "
+            "candidates"
             + (f", {self.n_deferred} reads via the unfused path"
                if self.n_deferred else "")
             + f" ({time.time() - t0:.1f}s)")
 
-    def _slow_groups(self, spec, sample, codes, lengths, names, quals):
-        """Unfused recompute of deferred reads (more kept chains than the
-        fused step's slots), regrouped per input row for the in-order
-        interleave of assemble_batch."""
-        if self._fallback_aligner is None:
-            self._fallback_aligner = PanelAligner(
-                self.index, self._dev, index_arrays=self._index_arrays)
-        sl = np.asarray(lengths, np.int32)
-        ch = self._fallback_aligner._chain(codes, sl)
-        rec = extract_records(ch, self.index)
-        extend_records_host(rec, self.index, codes, sl, self._dev)
-        out = run_decon(spec, codes, sl, list(names), list(quals), rec,
-                        self.index.names, sample, device=self._dev,
-                        dev_codes=ch["dev_codes"])
-        groups: dict = {}
+    def _run_unfused(self, sink, infile, device, batch_size, max_len,
+                     data_shards) -> int:
+        """The unfused stream; returns the number of reads. Batch i chains
+        on data cell i % data_shards, the cells laid over the devices
+        round-robin; its decon waits until data_shards later batches are
+        queued."""
+        aligner = PanelAligner(
+            self.index, device,
+            devices=mesh_devices(device) if data_shards > 1 else None)
+        pending: deque = deque()
+        n_reads = 0
+        for i, batch in enumerate(fastq.iter_batches(
+                infile, batch_size, max_len=max_len)):
+            # queue the batch's device work before draining older
+            # batches, so up to data_shards cells chain at once
+            pending.append((n_reads, batch, aligner._chain(
+                batch.codes, batch.lengths, shard=i % data_shards)))
+            n_reads += len(batch)
+            if len(pending) > data_shards:
+                self._put_unfused(sink, *pending.popleft())
+        while pending:
+            self._put_unfused(sink, *pending.popleft())
+        return n_reads
 
-        def grp(gi):
-            return groups.setdefault(int(gi), {"sub": [], "bc": [],
-                                               "bc_ref": [], "eds": [],
-                                               "polyA": [], "raw": []})
-
-        rd = rec.read_idx
-        for k, ri in enumerate(out.sub_rec):
-            grp(rd[ri])["sub"].append(
-                (out.sub_names[k], out.sub_seqs[k], out.sub_quals[k]))
-        for k, ri in enumerate(out.bcumi_rec):
-            g = grp(rd[ri])
-            g["bc"].append((out.bcumi_names[k], out.bcumi_seqs[k]))
-            g["bc_ref"].append(int(rec.ref_id[ri]))
-            if spec.bcumi_rule == "rev_slideseq":
-                g["polyA"].append(out.polyA[k])
-        if out.eds_rec is not None:
-            for k, ri in enumerate(out.eds_rec):
-                grp(rd[ri])["eds"].append(out.eds_rows[k])
-        for (ri, key) in (out.raw_rows or []):
-            grp(rd[ri])["raw"].append(key)
-        return groups
+    def _put_unfused(self, sink, seq0, batch, ch):
+        """Hand the unfused decon of one batch (input ordinals from seq0)
+        to the sink."""
+        sink.put(*_decon_part(self.spec, self.index, self.sample, ch, batch),
+                 range(seq0, seq0 + len(batch)))
 
     def transcripts(self) -> list:
         """The transcript of each candidate, in the store's order: the
@@ -668,21 +470,207 @@ class DeconRun:
                     f.write(n, s)
 
 
-def _fused_bcumi_refs(out, slow) -> list:
-    """The panel reference of each candidate of a fused batch, in
-    assemble_batch's order: each read's slots in turn, and for a deferred
-    read the candidates of its unfused rerun (slow(i)["bc_ref"])."""
-    defer = out["defer"]
-    S = len(out["flag"]) // max(len(defer), 1)
-    ok = (out["ok"] & out["accept_bc"]).reshape(-1, S)
-    ref = out["ref_id"].reshape(-1, S)
-    if not defer.any():
-        return ref[ok].tolist()
-    refs: list = []
-    for i in range(len(defer)):
-        refs += (slow(i).get("bc_ref", []) if defer[i]
-                 else ref[i][ok[i]].tolist())
-    return refs
+class _FusedStream:
+    """The fused stream: one step call per batch (stages/cli_step.py) on
+    `dev`; the host assembles the artifacts from the downloaded slot
+    arrays and hands them to the sink.
+
+    Reads dispatch in length buckets Lb in {1024, 2048, max_len}, each
+    batch up to batch_size reads of width Lb: ONT reads are mostly short,
+    and the chain's anchor slots grow with the width. Each read carries its
+    input ordinal, and the sink writes strictly in input order, so
+    bucketing changes nothing in the artifact byte streams. A batch goes
+    to the step with its filled rows only: eager kernels take any row
+    count, where the JAX step pads every batch to one compiled shape.
+
+    Up to 1 + INFLIGHT batches are in flight: the card computes ahead while
+    the host downloads and assembles. Reads the step defers (more kept
+    chains than its slots, or an anchor overflow) are rerun through the
+    unfused decon (_decon_part) in windows of at most FLUSH_BATCHES batches
+    and DEFER_CAP reads, padded to max_len; the sink interleaves them back
+    in read order.
+
+    With a matcher the step runs the exact-class whitelist pass, and the
+    sink's match rows carry its verdicts: rows it leaves DP_PENDING, and
+    the candidates of deferred reads, are matched after the stream.
+
+    The JAX package loads its compiled step per bucket ahead of time on a
+    thread (NANORANGER_AOT), and on an accelerator runs the unfused
+    fallback once on the first batch so that the fallback's compiles land
+    early. The port has neither: the kernels build at first use
+    (kernels.py), eager torch compiles nothing, and the fallback runs the
+    step's own kernels and torch ops; its aligner takes the step's index
+    tensors and its extension the step's reference tensors (a second copy
+    of a whole-transcriptome index would cost seconds and gigabytes).
+
+    Spans (trace.py): decon.index (the step's tensors of the index:
+    index_s), decon.read (fastq stream + encode), decon.step.issue (the
+    step calls: the host issues the card's work; eager torch waits only at
+    the extension's re-round test), decon.step.download (the wait at
+    download), decon.assemble (host artifact assembly and the ordered
+    writes), decon.slow (unfused reruns of deferred reads)."""
+
+    INFLIGHT = 3          # batches dispatched beyond the one being drained
+    # batches whose reads all fit the slots are written at once; batches
+    # with deferred reads buffer until one windowed unfused run covers them
+    FLUSH_BATCHES = 16
+    DEFER_CAP = 448
+
+    def __init__(self, spec, index, sample, sink, dev, batch_size, max_len,
+                 matcher):
+        self.spec, self.index, self.sample, self.sink = \
+            spec, index, sample, sink
+        self.batch_size, self.max_len = batch_size, max_len
+        with trace.span("decon.index") as sp:
+            self.step, self.tables = build_cli_step(spec, index,
+                                                    matcher=matcher,
+                                                    device=dev)
+        index_arrays = tuple(self.tables[k] for k in
+                             ("prefix_start", "prefix_count", "windows"))
+        self.index_bytes = sum(t.nbytes for t in index_arrays)
+        self.index_s = sp.seconds
+        self.fallback = PanelAligner(index, dev, index_arrays=index_arrays)
+        self.buckets = sorted({max(256, min(1024, max_len)),
+                               max(256, min(2048, max_len)),
+                               max(256, max_len)})
+        self.acc = {Lb: self._new_acc(Lb) for Lb in self.buckets}
+        self.pending: deque = deque()
+        self.buffer: list = []
+        self.buf_defers = 0
+        self.n_reads = self.n_deferred = 0
+
+    def run(self, infile):
+        it = fastq.iter_batches(infile, self.batch_size,
+                                max_len=self.max_len)
+        in_batches = next_seq = 0
+        while True:
+            with trace.span("decon.read"):
+                batch = next(it, None)
+            if batch is None:
+                break
+            self._route(batch, next_seq)
+            next_seq += len(batch)
+            in_batches += 1
+            if in_batches % self.FLUSH_BATCHES == 0:
+                # anti-starvation: a rare bucket would otherwise hold the
+                # write cursor (and the sink's held reads) until it fills
+                for Lb in self.buckets:
+                    self._dispatch(Lb)
+        for Lb in self.buckets:
+            self._dispatch(Lb)
+        while self.pending:
+            self._drain()
+        self._flush()
+
+    def _new_acc(self, Lb):
+        n = self.batch_size
+        return {"codes": np.full((n, Lb), PAD, np.int8),
+                "lengths": np.zeros(n, np.int32), "names": [""] * n,
+                "quals": [b""] * n, "seq": np.full(n, -1, np.int64), "n": 0}
+
+    def _route(self, batch, seq0):
+        """Copy the reads of `batch` (input ordinals from seq0) into their
+        buckets, one sliced copy per (bucket, contiguous run), and
+        dispatch each bucket that fills."""
+        w = batch.codes.shape[1]
+        bl = np.minimum(np.asarray(batch.lengths), self.max_len)
+        bidx = np.searchsorted(np.asarray(self.buckets), bl)
+        for b, Lb in enumerate(self.buckets):
+            rows = np.nonzero(bidx == b)[0]
+            r0 = 0
+            while r0 < len(rows):
+                a = self.acc[Lb]
+                k = a["n"]
+                take = min(self.batch_size - k, len(rows) - r0)
+                sel = rows[r0:r0 + take]
+                w2 = min(w, Lb)
+                a["codes"][k:k + take, :w2] = batch.codes[sel, :w2]
+                a["lengths"][k:k + take] = bl[sel]
+                for j, i in enumerate(sel):
+                    a["names"][k + j] = batch.names[i]
+                    a["quals"][k + j] = batch.quals[i]
+                a["seq"][k:k + take] = seq0 + sel
+                a["n"] = k + take
+                r0 += take
+                if a["n"] == self.batch_size:
+                    self._dispatch(Lb)
+
+    def _dispatch(self, Lb):
+        a = self.acc[Lb]
+        n = a["n"]
+        if n == 0:
+            return
+        trace.count(f"decon.batches.L{Lb}")
+        trace.count(f"decon.reads.L{Lb}", n)
+        with trace.span("decon.step.issue"):
+            out_dev = self.step(a["codes"][:n], a["lengths"][:n],
+                                self.tables)
+        self.pending.append((fastq.ReadBatch(
+            a["codes"][:n], a["lengths"][:n], a["names"][:n],
+            a["quals"][:n]), a["seq"][:n], out_dev))
+        self.acc[Lb] = self._new_acc(Lb)
+        if len(self.pending) > self.INFLIGHT:
+            self._drain()
+
+    def _drain(self):
+        batch, seqs, out_dev = self.pending.popleft()
+        with trace.span("decon.step.download"):
+            out = {k: v.cpu().numpy() for k, v in out_dev.items()}
+        self.n_reads += len(batch)
+        self.buffer.append((batch, seqs, out))
+        self.buf_defers += int(out["defer"].sum())
+        if self.buf_defers == 0 or len(self.buffer) >= self.FLUSH_BATCHES \
+                or self.buf_defers >= self.DEFER_CAP:
+            self._flush()
+
+    def _flush(self):
+        """Rerun the buffered batches' deferred reads, then assemble every
+        buffered batch and hand it and the reruns to the sink."""
+        rows = [(seqs[i], batch, i) for batch, seqs, out in self.buffer
+                for i in np.flatnonzero(out["defer"])]
+        reruns = []
+        if rows:
+            with trace.span("decon.slow"):
+                reruns = [self._rerun(rows[b:b + self.DEFER_CAP])
+                          for b in range(0, len(rows), self.DEFER_CAP)]
+        with trace.span("decon.assemble"):
+            for batch, seqs, out in self.buffer:
+                asm = assemble_batch(
+                    self.spec, out, batch.codes, batch.lengths, batch.names,
+                    batch.quals, self.index.names, self.sample,
+                    slow_fallback=lambda didx: {})
+                self.n_deferred += asm.n_deferred_reads
+                # a deferred read's products come from its rerun
+                defer = out["defer"]
+                cand = (out["ok"] & out["accept_bc"]).reshape(
+                    len(defer), -1) & ~defer[:, None]
+                self.sink.put(asm, out["ref_id"].reshape(
+                    len(defer), -1)[cand].tolist(),
+                    np.where(defer, -1, seqs))
+            for part, refs, seqs in reruns:
+                self.sink.put(part, refs, seqs)
+        self.buffer.clear()
+        self.buf_defers = 0
+
+    def _rerun(self, rows):
+        """The unfused decon of deferred reads rows [(ordinal, batch, row)],
+        at max_len width: deferred rows come from every bucket."""
+        codes = np.full((len(rows), self.max_len), PAD, np.int8)
+        for k, (_, b, i) in enumerate(rows):
+            codes[k, :b.codes.shape[1]] = b.codes[i]
+        batch = fastq.ReadBatch(
+            codes, np.asarray([b.lengths[i] for _, b, i in rows], np.int32),
+            [b.names[i] for _, b, i in rows],
+            [b.quals[i] for _, b, i in rows])
+        part, refs = _decon_part(
+            self.spec, self.index, self.sample,
+            self.fallback._chain(batch.codes, batch.lengths), batch)
+        if self.sink.match is not None:
+            # matched after the stream, as assemble_batch marks them
+            n = len(part.bcumi_names)
+            part.match_bc, part.match_score = [-2] * n, [0] * n
+            part.match_status, part.match_umi = [0] * n, [None] * n
+        return part, refs, [s for s, _, _ in rows]
 
 
 def _transcript_in_name(name: str, panel: set) -> str:
@@ -1107,9 +1095,9 @@ def run_pipeline(mode, infile, outdir, sample, trns_ref=None, genome_ref=None,
                  wl_shards=1, data_shards=1, scrub=False, device="cuda",
                  fast=None):
     """Run `mode` from the fastq to its artifacts on `device`. fast=None
-    takes the fused per-batch step when data_shards <= 1 and
-    NANORANGER_NO_FAST is not 1 (DeconRun); fast=False forces the unfused
-    path. The run is traced (trace.py) into {sample}_runstats.json."""
+    takes the fused per-batch step when data_shards <= 1 (DeconRun);
+    fast=False forces the unfused path. The run is traced (trace.py) into
+    {sample}_runstats.json."""
     with trace.run():
         _run_pipeline(mode, infile, outdir, sample, trns_ref, genome_ref,
                       barcodes, xpecies, batch_size, force, wl_shards,

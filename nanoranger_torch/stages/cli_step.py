@@ -40,7 +40,7 @@ from ..align.index import PanelIndex
 from ..align.minimizers import K
 from ..chemistry import ChemistrySpec
 from ..io.encode import COMPLEMENT, PAD, encode
-from ..ops.extend import F_EXT, extend_scores
+from ..ops.extend import F_EXT, extend_spans
 from .decon import _anchor_code, _scan_flanks
 
 BIG = 1 << 30
@@ -178,81 +178,27 @@ def _records_exact(chain_out, lengths, ref_lens, S: int):
 
 
 # ---------------------------------------------------------------------------
-# base-level end extension over the slots (ops/extend.extend_records_host)
+# base-level end extension over the slots (ops/extend.extend_spans)
 
 def _extend_slots(codes, lengths, rec, ref_flat, ref_off, ref_lens,
                   S: int, rounds: int = 4, F: int = F_EXT):
-    """Extend slot spans in stored-read orientation: the math of
-    extend_records_host (the same extend_scores DP, the same cap-gated
-    re-rounds), over the B*S slots at once. A re-round runs while some slot
-    is active; once none is, later rounds would change nothing."""
-    B, L = codes.shape
-    dev = codes.device
+    """Extend the B*S slot spans at once: every slot a row of
+    extend_spans, the slots that hold a record active. Returns the
+    extended spans as (B, S) tensors in original-read coordinates."""
+    B = codes.shape[0]
     R = B * S
-    read_idx = torch.arange(B, dtype=torch.int64, device=dev) \
+    read_idx = torch.arange(B, dtype=torch.int64, device=codes.device) \
         .repeat_interleave(S)
     rlen = lengths[read_idx]
     strand = rec["strand"].reshape(R)
-    ok = rec["ok"].reshape(R)
-    rid = rec["ref_id"].reshape(R).long()
-    roff = ref_off[rid]
-    rl = ref_lens[rid]
-
-    s_qs = torch.where(strand == 1, rlen - rec["qend"].reshape(R),
-                       rec["qstart"].reshape(R))
-    s_qe = torch.where(strand == 1, rlen - rec["qstart"].reshape(R),
-                       rec["qend"].reshape(R))
-    ts = rec["tstart"].reshape(R)
-    te = rec["tend"].reshape(R)
-
-    comp = torch.from_numpy(COMPLEMENT).to(dev)
-    jj = torch.arange(F, dtype=torch.int32, device=dev)[None]
-    rev = strand[:, None] == 1
-    neg = torch.tensor(-1, dtype=torch.int8, device=dev)
-
-    def stored_gather(x):
-        """stored-orientation bases at read positions x (R, F)."""
-        xc = x.clamp(0, L - 1)
-        pos = torch.where(rev, rlen[:, None] - 1 - xc, xc).clamp(0, L - 1)
-        v = codes[read_idx[:, None], pos.long()]
-        return torch.where(rev, comp[v.long()], v)
-
-    def ref_gather(y):
-        yc = (roff[:, None] + y.clamp(min=0)).clamp(0, ref_flat.shape[0] - 1)
-        return ref_flat[yc.long()]
-
-    active = ok
-    for rnd in range(rounds):
-        if rnd and not bool(active.any()):
-            break
-        lo_qn = s_qs.clamp(max=F)
-        lo_tn = ts.clamp(max=F)
-        hi_qn = (rlen - s_qe).clamp(0, F)
-        hi_tn = (rl - te).clamp(0, F)
-        q_lo = torch.where(jj < lo_qn[:, None],
-                           stored_gather(s_qs[:, None] - 1 - jj), neg)
-        t_lo = torch.where(jj < lo_tn[:, None],
-                           ref_gather(ts[:, None] - 1 - jj), neg)
-        q_hi = torch.where(jj < hi_qn[:, None],
-                           stored_gather(s_qe[:, None] + jj), neg)
-        t_hi = torch.where(jj < hi_tn[:, None],
-                           ref_gather(te[:, None] + jj), neg)
-        qf = torch.cat([q_lo, q_hi]).to(torch.int8)
-        tf = torch.cat([t_lo, t_hi]).to(torch.int8)
-        qn = torch.cat([lo_qn, hi_qn]).to(torch.int32)
-        tn = torch.cat([lo_tn, hi_tn]).to(torch.int32)
-        bi, bj = extend_scores(qf, qn, tf, tn, F=F)
-        qi_l, qi_r = bi[:R], bi[R:]
-        tj_l, tj_r = bj[:R], bj[R:]
-        s_qs = torch.where(active, s_qs - qi_l, s_qs)
-        s_qe = torch.where(active, s_qe + qi_r, s_qe)
-        ts = torch.where(active, ts - tj_l, ts)
-        te = torch.where(active, te + tj_r, te)
-        capped = ((qi_l >= F - 4) | (tj_l >= F - 4) |
-                  (qi_r >= F - 4) | (tj_r >= F - 4)) & \
-            ((qi_l + qi_r + tj_l + tj_r) > 0)
-        active = active & capped
-
+    qstart, qend = rec["qstart"].reshape(R), rec["qend"].reshape(R)
+    s_qs, s_qe, ts, te = extend_spans(
+        codes, read_idx, rlen, strand, rec["ref_id"].reshape(R),
+        (torch.where(strand == 1, rlen - qend, qstart),
+         torch.where(strand == 1, rlen - qstart, qend),
+         rec["tstart"].reshape(R), rec["tend"].reshape(R)),
+        rec["ok"].reshape(R), ref_flat, ref_off, ref_lens, F=F,
+        rounds=rounds)
     qstart = torch.where(strand == 1, rlen - s_qe, s_qs)
     qend = torch.where(strand == 1, rlen - s_qs, s_qe)
     return {"qstart": qstart.reshape(B, S), "qend": qend.reshape(B, S),
@@ -281,21 +227,10 @@ def build_cli_step(spec: ChemistrySpec, index: PanelIndex, matcher=None,
     whitelist pass).
     """
     dev = torch.device(device)
-    n_bases = int(index.ref_lens.astype(np.int64).sum())
-    if n_bases >= 1 << 31:
-        raise ValueError(
-            f"the reference holds {n_bases} bases; the step addresses it "
-            "with int32 offsets, which reach 2^31 - 1")
+    ref_flat, ref_off, ref_lens = index.ref_tensors(dev)
     ps, pc, windows = prepare_index_arrays(index, dev)
-    tables = {
-        "prefix_start": ps, "prefix_count": pc, "windows": windows,
-        "ref_lens": torch.from_numpy(index.ref_lens.astype(np.int32)).to(dev),
-        "ref_flat": torch.from_numpy(
-            np.concatenate([np.asarray(s, np.int8) for s in index.seq_codes])
-            if index.n_refs else np.zeros(1, np.int8)).to(dev),
-        "ref_off": torch.from_numpy(
-            index.ref_offset.astype(np.int32)).to(dev),
-    }
+    tables = {"prefix_start": ps, "prefix_count": pc, "windows": windows,
+              "ref_lens": ref_lens, "ref_flat": ref_flat, "ref_off": ref_off}
     do_match = matcher is not None and spec.barcode is not None
     if do_match:
         tables["m"] = matcher.device_tables()

@@ -1,16 +1,15 @@
-"""The fused path of the PyTorch port (DeconRun._run_fast, the default with
-data_shards <= 1) against its unfused path on the CPU: every artifact of
-run_pipeline(fast=None) and run_pipeline(fast=False) (or
-NANORANGER_NO_FAST=1) is byte-identical after gunzip (pdfs and run
-statistics aside). The cases of tests/test_cli_fast_path.py: synthetic
-concatemers with more kept chains than the step's slots (the deferred reads
-rerun through the unfused path and interleaved in read order, here also
-with the step's exact-class whitelist pass and the prematched match that
-the card runs), 300-read prefixes of slideseq_XCR and TCR3 with reduced
-whitelists (the plain one-vs-all DP against a full list is too heavy for a
-CPU test), and a 3p10XGEX prefix (data-driven whitelist, no match in the
-step). match_barcodes(prematched=) gives what a match of every candidate
-gives."""
+"""The fused path of the PyTorch port (pipeline._FusedStream, the default
+with data_shards <= 1) against its unfused path on the CPU: every artifact
+of run_pipeline(fast=None) and run_pipeline(fast=False) is byte-identical
+after gunzip (pdfs and run statistics aside). The cases of
+tests/test_cli_fast_path.py: synthetic concatemers with more kept chains
+than the step's slots (the deferred reads rerun through the unfused decon
+and interleaved in read order, with the step's exact-class whitelist pass
+and the prematched match, on the CPU as on the card), 300-read prefixes of
+slideseq_XCR and TCR3 with reduced whitelists (the plain one-vs-all DP
+against a full list is too heavy for a CPU test), and a 3p10XGEX prefix
+(data-driven whitelist, no match in the step). match_barcodes(prematched=)
+gives what a match of every candidate gives."""
 
 import gzip
 import json
@@ -115,25 +114,33 @@ KW = dict(trns_ref=PANEL, genome_ref="/nonexistent", batch_size=8)
 
 @pytest.fixture(scope="module")
 def concat_slow(concatemers, tmp_path_factory):
-    """The unfused run of the concatemers, taken by NANORANGER_NO_FAST=1."""
+    """The unfused run of the concatemers."""
     infile, wl = concatemers
     out = str(tmp_path_factory.mktemp("concat_slow") / "o")
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("NANORANGER_NO_FAST", "1")
-        pipeline.run_pipeline("5p10XGEX", infile, out, "t", device="cpu",
-                              barcodes=wl, **KW)
+    pipeline.run_pipeline("5p10XGEX", infile, out, "t", device="cpu",
+                          barcodes=wl, fast=False, **KW)
     return out
 
 
-def test_concatemer_defer_interleave(concatemers, concat_slow, tmp_path):
+def test_concatemer_defer_interleave(concatemers, concat_slow, tmp_path,
+                                    monkeypatch):
     """Deferred concatemers rerun through the unfused path and interleave
-    in read order."""
+    in read order; so do the transcripts of their candidates."""
     infile, wl = concatemers
     out = str(tmp_path / "fast")
+    runs = []
+    decon_run = pipeline.DeconRun
+    monkeypatch.setattr(pipeline, "DeconRun", lambda *a, **k: runs.append(
+        decon_run(*a, **k)) or runs[-1])
     pipeline.run_pipeline("5p10XGEX", infile, out, "t", device="cpu",
                           barcodes=wl, **KW)
     a = _hash_artifacts(concat_slow)
     assert a == _hash_artifacts(out)
+    slow = decon_run(chemistry.get("5p10XGEX"), infile, str(tmp_path / "s"),
+                     "t", PANEL, "cpu", KW["batch_size"], fast=False)
+    assert runs[0].n_deferred >= 2
+    assert runs[0].transcripts() == slow.transcripts()
+    assert len(slow.transcripts()) == len(slow.cands) > 0
     assert {"t_deconcat.fastq.gz", "t_BCUMI.fasta.gz",
             "t_assignments.csv.gz", "t_bcumi_dedup.csv"} <= set(a)
     rs = _runstats(out)
@@ -160,10 +167,10 @@ def test_concatemer_defer_interleave(concatemers, concat_slow, tmp_path):
 
 def test_concatemers_with_the_step_matcher(concatemers, concat_slow,
                                            tmp_path, monkeypatch):
-    """The card's route on the CPU: the step runs the exact-class pass,
-    DeconRun.prematch carries its verdicts (the deferred reads' candidates
-    and DP_PENDING rows pending) and match_barcodes matches only those;
-    the artifacts equal the unfused run's."""
+    """The card's route, which the CPU takes too: the step runs the
+    exact-class pass, DeconRun.prematch carries its verdicts (the deferred
+    reads' candidates and DP_PENDING rows pending) and match_barcodes
+    matches only those; the artifacts equal the unfused run's."""
     infile, wl = concatemers
     seen = []
     match_barcodes = pipeline.match_barcodes
@@ -172,7 +179,6 @@ def test_concatemers_with_the_step_matcher(concatemers, concat_slow,
         seen.append(prematched)
         return match_barcodes(*a, prematched=prematched, **k)
 
-    monkeypatch.setattr(pipeline, "_matcher_in_step", lambda dev: True)
     monkeypatch.setattr(pipeline, "match_barcodes", recording)
     out = str(tmp_path / "fast")
     pipeline.run_pipeline("5p10XGEX", infile, out, "t", device="cpu",

@@ -69,10 +69,10 @@ def _write_whitelist(path, full, carried, n_random, suffix=""):
 def _both(mode, tmp_path, monkeypatch, fq, differ=(), **kw):
     """Both packages' artifacts, byte-identical but those named in
     `differ`, which each test compares itself."""
-    monkeypatch.setenv("NANORANGER_NO_FAST", "1")   # the streamed path
+    monkeypatch.setenv("NANORANGER_NO_FAST", "1")   # the JAX streamed path
     jax_run_pipeline(mode, fq, str(tmp_path / "jax"), "t", **kw)
     pipeline.run_pipeline(mode, fq, str(tmp_path / "torch"), "t",
-                          device="cpu", **kw)
+                          device="cpu", fast=False, **kw)
     want = _hash_artifacts(str(tmp_path / "jax"))
     got = _hash_artifacts(str(tmp_path / "torch"))
     assert set(got) == set(want)

@@ -85,7 +85,7 @@ def test_artifacts_byte_identical_to_jax(tmp_path, monkeypatch):
     fq, wl_path = _prefix_and_whitelist(tmp_path)
     kw = dict(trns_ref=PANEL, genome_ref=str(tmp_path / "no_genome.fa"),
               barcodes=wl_path)
-    monkeypatch.setenv("NANORANGER_NO_FAST", "1")   # the streamed path
+    monkeypatch.setenv("NANORANGER_NO_FAST", "1")   # the JAX streamed path
     jax_run_pipeline("5p10XGEX", fq, str(tmp_path / "jax"), "t", **kw)
 
     dp_rows = []
@@ -97,7 +97,7 @@ def test_artifacts_byte_identical_to_jax(tmp_path, monkeypatch):
 
     monkeypatch.setattr(barcode, "verify_all", counting_verify_all)
     pipeline.run_pipeline("5p10XGEX", fq, str(tmp_path / "torch"), "t",
-                          device="cpu", **kw)
+                          device="cpu", fast=False, **kw)
     want = _hash_artifacts(str(tmp_path / "jax"))
     got = _hash_artifacts(str(tmp_path / "torch"))
     assert set(want) >= {"t_deconcat.fastq.gz", "t_BCUMI.fasta.gz",
