@@ -39,8 +39,12 @@ Phases, each of which must pass or the script exits non-zero:
                record slots of a 1024-bucket batch, and the device step's:
                the chain DP at B = 1024, A = 2048 on K562 reads, the
                one-vs-all DP at batch 0's in-step need_dp rows against the
-               737K list; one JSON line per kernel and shape with its time,
-               the plain version's time and the mismatches
+               737K list; and the banded CIGAR DP at the first launch of
+               the genome stage on K562 subreads (band 160) and of the
+               clonotyper on slideseq subreads (band 48), against the host
+               C++ routine (its plain version); one JSON line per kernel
+               and shape with its time, the plain version's time and the
+               mismatches
   step    — the single-dispatch device step (stages/device_step.py) at the
                bench.py _setup shape: the K562 sample at L = 2048 in
                batches of 1024 (3,072 reads), the RUNX1 panel, the full
@@ -185,6 +189,12 @@ SCALAR_OPS_PER_S = 67e12
 # does one op in each 16-bit half of a lane, so at one instruction a lane a
 # clock the card does 2 x 33.5e12 16-bit ops a second
 PACKED16_OPS_PER_S = 67e12
+# 32-bit integer ops: 64 INT32 lanes an SM, one op a lane a clock, at the
+# boost clock of 1.98 GHz
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# integer ops a band cell of the banded CIGAR DP needs (M: a 3-way max and
+# the score; X and Y: two adds, a max and two guards each; the code byte)
+BANDED_OPS_PER_CELL = 20
 
 KERNELS = {   # name -> (source, TPU kernel it replaces)
     "chain": ("nanoranger_torch/csrc/chain.cu",
@@ -201,6 +211,8 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
            "nanoranger_tpu/ops/pallas_sw.py:148"),
     "sw_full": ("nanoranger_torch/csrc/sw_full.cu",
                 "nanoranger_tpu/ops/pallas_sw.py:55"),
+    # no TPU kernel: the host routine runtime/native/banded_align.cpp
+    "banded": ("nanoranger_torch/csrc/banded_cigar.cu", None),
 }
 
 
@@ -750,6 +762,120 @@ STEP_B, STEP_L, STEP_MM = 1024, 2048, 512   # reads a step, length, minimizers
 STEP_KERNELS = ("chain", "ed", "verify", "sw")
 
 
+def decon_subreads(dev, mode, infile, panel, outdir):
+    """The subread fastq of `infile` cut by the port's decon stage on `dev`
+    (no whitelist), and the subreads' names."""
+    from nanoranger_torch import chemistry, pipeline
+    from nanoranger_torch.io import fastq
+    run = pipeline.DeconRun(chemistry.get(mode), infile, outdir, "s", panel,
+                            dev)
+    names = [n for b in fastq.iter_batches(run.sub_path, 4096)
+             for n in b.names]
+    return run.sub_path, names
+
+
+@contextlib.contextmanager
+def recording_banded(mod, calls):
+    """Append the (q_segs, t_segs, band) of every banded_align call that
+    module `mod` (pipeline or vdj.caller) makes to `calls`."""
+    orig = mod.banded_align
+
+    def recording(q_segs, t_segs, band, device):
+        calls.append((list(q_segs), list(t_segs), band))
+        return orig(q_segs, t_segs, band, device)
+    mod.banded_align = recording
+    try:
+        yield calls
+    finally:
+        mod.banded_align = orig
+
+
+def k562_genome_stage(dev, outdir, calls=None):
+    """The genome stage on the K562 sample's subreads (decon on `dev`,
+    every subread tagged; genome = the fusion partners' panel) into
+    `outdir`, with its banded_align calls appended to `calls`. Returns the
+    tag map."""
+    from nanoranger_torch import chemistry, pipeline
+    sub_path, names = decon_subreads(dev, "5p10XGEX", SAMPLE, PANEL, outdir)
+    tag_map = {n: (f"CB{i:05d}", f"UB{i:05d}", "tagged")
+               for i, n in enumerate(names)}
+    with recording_banded(pipeline, [] if calls is None else calls):
+        pipeline.genome_stage(chemistry.get("5p10XGEX"), outdir, "s", PANEL,
+                              tag_map, dev, force=True)
+    return tag_map
+
+
+def slideseq_clonotypes(dev, sub_path, outdir, calls=None):
+    """The clonotyper on slideseq subreads, as the pipeline calls it for
+    3pXCR_slideseq (the mouse V panels, XR_C_mouse.fa), into `outdir`,
+    with its banded_align calls appended to `calls`."""
+    from nanoranger_torch.vdj import call_clonotypes, caller
+    v_fastas = [os.path.join(DATA, n) for n in ("TR_V_mouse.fa",
+                                                "IG_V_mouse.fa")]
+    with recording_banded(caller, [] if calls is None else calls):
+        return call_clonotypes(sub_path, v_fastas, outdir, "s",
+                               c_fastas=[C_PANEL], log=lambda *_: None,
+                               device=dev)
+
+
+def check_banded(dev, work):
+    """The banded CIGAR DP at the first launch of the genome stage on K562
+    subreads and of the clonotyper on slideseq subreads, against the host
+    C++ routine: {row name: row}. The kernel's time from torch.profiler
+    over 5 calls (the card's time of banded_cigar_kernel a call), the
+    wrapper's wall a call (host packing, copies, launch, the wait and the
+    CIGARs' decode: what the stage pays) and the host routine's wall."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nanoranger_torch.ops.banded import banded_align
+    from nanoranger_torch.runtime.native_lib import banded_align_batch
+    k562, vdj = [], []
+    k562_genome_stage(dev, os.path.join(work, "k562"), k562)
+    sub_path, _ = decon_subreads(dev, "3pXCR_slideseq", SLIDESEQ, C_PANEL,
+                                 os.path.join(work, "slideseq"))
+    slideseq_clonotypes(dev, sub_path, os.path.join(work, "slideseq"), vdj)
+    rows = {}
+    for name, (q, t, band) in (("banded_genome_k562", k562[0]),
+                               ("banded_vdj_slideseq", vdj[0])):
+        t0 = time.time()
+        want = banded_align_batch(q, t, band=band)
+        host_ms = (time.time() - t0) * 1e3
+        got = banded_align(q, t, band, dev)
+        torch.cuda.synchronize()
+        walls = []
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                t0 = time.time()
+                banded_align(q, t, band, dev)
+                walls.append((time.time() - t0) * 1e3)
+        kt = kernel_time(prof, "banded_cigar_kernel")
+        lq = np.fromiter(map(len, q), np.int64, len(q))
+        lt = np.fromiter(map(len, t), np.int64, len(t))
+        bw = 2 * np.maximum(band, np.abs(lq - lt) + 16) + 1
+        cells = int(((lq + 1) * bw).sum())
+        # bytes: the bases read once, the CIGAR text and four int32 out
+        n_bytes = int(lq.sum() + lt.sum()) + sum(map(len, want[0])) \
+            + 16 * len(q)
+        mism = sum(a != b for a, b in zip(got[0], want[0])) + int(
+            (got[1] != want[1]).sum()) + int((got[2] != want[2]).sum())
+        # the largest difference in score or NM, segment for segment
+        err = max(float(np.abs(g.astype(np.int64) - w).max(initial=0))
+                  for g, w in zip(got[1:], want[1:]))
+        rows[name] = {
+            "ms": kt["banded_cigar_kernel_ms"] / 5,
+            "bound": bound(n_bytes, cells * BANDED_OPS_PER_CELL,
+                           INT32_OPS_PER_S),
+            "plain_ms": round(host_ms, 3),
+            "wrapper_ms": round(float(np.median(walls)), 3),
+            "launches_a_call": kt["banded_cigar_kernel_launches"] // 5,
+            "mismatches": int(mism), "max_abs_err": err,
+            "shape": [len(q), band, int(lq.max()), int(lt.max()),
+                      int(bw.max()), cells]}
+    return rows
+
+
 def step_batches():
     """bench.py _setup's batches: the K562 sample read whole at L = 2048,
     its first floor(reads / 1024) * 1024 reads in batches of 1024."""
@@ -1105,6 +1231,8 @@ def prewarm_phase(card):
     before its first run: every kernel and host library built. The reader
     may fail to build only on a host without zlib. Returns a failure or
     None."""
+    from nanoranger_torch import kernels
+    from nanoranger_torch.runtime import native_lib
     t0 = time.time()
     r = subprocess.run([sys.executable, "-m",
                         "nanoranger_torch.tools.prewarm"], cwd=HERE,
@@ -1119,7 +1247,7 @@ def prewarm_phase(card):
           "seconds": round(time.time() - t0, 2), "zlib_on_host": zlib,
           "libraries": libs})
     if (failed and failed != ["nrfastq"]) or (failed and zlib) or \
-            len(libs) != 7:
+            len(libs) != len(kernels.SOURCES) + len(native_lib.LIBS):
         return f"the prewarm failed: {failed} ({r.stderr[-2000:]})"
     return None
 
@@ -1790,6 +1918,12 @@ def main() -> int:
         rows.append((f"sw_full_Lr{r['shape'][2]}", r))
         res.setdefault("sw_full", r)            # the 86-wide 5' row
     rows.append(("sw_full_split_Lr86", check_sw_full_split(dev, rng)))
+    # the banded CIGAR DP at the genome stage's and the clonotyper's first
+    # launch, against the host routine
+    with tempfile.TemporaryDirectory(prefix="nr_smoke_") as work:
+        banded_rows = check_banded(dev, work)
+    rows += list(banded_rows.items())
+    res["banded"] = banded_rows["banded_genome_k562"]
 
     failed = []
     for name, r in rows:
@@ -1828,8 +1962,10 @@ def main() -> int:
             goldens = {k: {g: v for g, v in d.items() if g != "mode"}
                        for k, d in json.load(f)["samples"].items()}
         four = ("chain", "ed", "verify", "sw")
-        # the genome stage adds the splice instantiation of the chain DP
-        five = (*four, "chain_splice")
+        # the genome stage adds the splice instantiation of the chain DP,
+        # and with the clonotyper the banded CIGAR DP
+        five = (*four, "chain_splice", "banded")
+        clones = (*four, "banded")
         runs = [
             # (run, mode, sample, panel, genome, whitelist, golden, kernels)
             ("k562", "5p10XGEX", SAMPLE, PANEL, PANEL, WHITELIST,
@@ -1841,9 +1977,9 @@ def main() -> int:
             ("car", "5p10XGEX", S_CAR, CAR_PANEL, CAR_PANEL, WHITELIST,
              goldens["97_6_CAR"], five),
             ("tcr3", "5p10XTCR", TCR3, V_PANEL, None, WHITELIST,
-             goldens["TCR3"], four),
+             goldens["TCR3"], clones),
             ("slideseq", "3pXCR_slideseq", SLIDESEQ, C_PANEL, None,
-             SLIDESEQ_WL, goldens["slideseq_XCR"], four),
+             SLIDESEQ_WL, goldens["slideseq_XCR"], clones),
             # RTX has no adapter scan and no match: the chain DP alone
             ("rtx", "RTX", TCR3, V_PANEL, None, None, {}, ("chain",)),
         ]

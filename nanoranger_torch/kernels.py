@@ -40,6 +40,7 @@ SOURCES = {
     "verify": ("verify.cu", []),
     "sw": ("sw_banded.cu", []),
     "sw_full": ("sw_full.cu", []),
+    "banded": ("banded_cigar.cu", []),
 }
 
 # launches per library; chain.cu's splice instantiation counts apart

@@ -73,9 +73,9 @@ from .io.bam import BAMWriter
 from .io.candidate_store import CandidateStore
 from .io.encode import COMPLEMENT, PAD, decode, encode_batch
 from .io.fasta import FastaWriter, iter_fasta
+from .ops.banded import banded_align
 from .ops.extend import extend_records_host
 from .parallel.sharded import ShardedMatcher, mesh_devices
-from .runtime.native_lib import banded_align_batch
 from .stages import clones as clone_stage
 from .stages import counting
 from .stages.barcode import (ACCEPT, BAD_UMI, DP_PENDING, LOW_AS,
@@ -847,7 +847,9 @@ def genome_stage(spec, outdir, sample, genome_ref, tag_map, device,
     (reference align_genome.sh `minimap2 -x splice` + utils.py:801-827).
     Intron-spanning chains are split into exon blocks
     (align/aligner.extract_exons); each exon is base-level aligned by the
-    native banded DP and the gaps between exons become N CIGAR ops.
+    banded DP (ops/banded.banded_align: the kernel csrc/banded_cigar.cu on
+    a CUDA `device`, the host C++ routine elsewhere) and the gaps between
+    exons become N CIGAR ops.
 
     Streamed external sort: each input batch becomes one coordinate-sorted
     spill of finished records (CIGARs included, so the merge is IO only),
@@ -869,7 +871,9 @@ def genome_stage(spec, outdir, sample, genome_ref, tag_map, device,
     before the clip), genome.blocks_trimmed and genome.blocks_dropped (by
     the clip), genome.spliced_records (records holding an N) and
     genome.partner_reads (written subreads whose records, supplementary
-    ones included, lie on two or more references: fusion evidence)."""
+    ones included, lie on two or more references: fusion evidence); the
+    exon segments count in banded.device_segments or banded.host_segments
+    (ops/banded.py)."""
     done = [f"{outdir}/{sample}_genome_tagged.bam",
             f"{outdir}/{sample}_genome_tagged.bam.bai",
             f"{outdir}/{sample}_trns_ct.csv"]
@@ -899,7 +903,7 @@ def genome_stage(spec, outdir, sample, genome_ref, tag_map, device,
                 q_segs.append(stored[q_lo:q_hi])
                 t_segs.append(gindex.seq_codes[rid][t_lo:t_hi])
             seg_of.append(slice(lo, len(q_segs)))
-        cigars, scores, nms = banded_align_batch(q_segs, t_segs, band=160)
+        cigars, scores, nms = banded_align(q_segs, t_segs, 160, device)
         out = []
         for k, (rid, ts, flag, name, blocks, codes, qual, mq) in \
                 enumerate(rows):

@@ -7,8 +7,9 @@ replacement for `mixcr align`+`assemble`, reference scripts/mixcr.sh:8-22):
    DP kernel on CUDA) over the V-gene panel; best primary record per
    subread.
 2. Frame pinning — the V alignment span is re-aligned base-level with the
-   native banded aligner and the CIGAR maps the V reference's conserved
-   Cys codon (vdj/cdr3.v_cys_position) into read coordinates.
+   banded aligner (ops/banded.banded_align: csrc/banded_cigar.cu on CUDA,
+   the host C++ routine elsewhere) and the CIGAR maps the V reference's
+   conserved Cys codon (vdj/cdr3.v_cys_position) into read coordinates.
 3. CDR3 call — in-frame translation from the Cys to the J [FW]GxG motif
    (vdj/cdr3.extract_cdr3).
 4. Fallback for short 5' windows — 5p10XTCR subreads carry only ~60 nt of
@@ -28,7 +29,8 @@ panel), vdj.align (step 1 and the banded jobs cut from it), vdj.banded
 (step 2's banded DP), vdj.cdr3 (steps 3-4: CDR3, partials, C probe),
 vdj.assemble (step 5's germline context and assembly), vdj.exports;
 counters: the tallies of the log line (vdj.subreads, vdj.v_aligned,
-vdj.name_hinted, vdj.calls, vdj.partial, vdj.clones).
+vdj.name_hinted, vdj.calls, vdj.partial, vdj.clones), and the banded
+aligner's banded.device_segments / banded.host_segments.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from .. import trace
 from ..align.aligner import PanelAligner
 from ..align.index import PanelIndex
 from ..io import fastq
-from ..runtime.native_lib import banded_align_batch
+from ..ops.banded import banded_align
 from . import cdr3 as cdr3mod
 from .clonotype import ReadCall, assemble, write_exports
 
@@ -217,8 +219,8 @@ def call_clonotypes(sub_fastq: str, v_fastas: list, outdir: str,
         if not jobs:
             continue
         with trace.span("vdj.banded"):
-            cigars, scores, nms = banded_align_batch(
-                [j[4] for j in jobs], [j[5] for j in jobs], band=48)
+            cigars, scores, nms = banded_align(
+                [j[4] for j in jobs], [j[5] for j in jobs], 48, device)
 
         with trace.span("vdj.cdr3"):
             for (i, v, qs, ts, q_seg, t_seg), cig, sc, nm in zip(

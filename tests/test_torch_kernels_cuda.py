@@ -1,5 +1,5 @@
-"""The port's five Hopper kernel libraries against their plain PyTorch
-versions on the card, at ragged shapes and edges the main paths do not
+"""The port's six Hopper kernel libraries against their plain versions on
+the card, at ragged shapes and edges the main paths do not
 exercise (chip_smoke.py holds them at the main-path shapes); the chain DP
 in both of its gap classes, the adapter scan at the word boundaries of its
 bit vectors, the banded rescore at the pipeline's pair counts, the full-row
@@ -11,7 +11,11 @@ single-device matcher; the fused per-batch step on the card against the
 same step on the CPU, and K1 and K2+K3 at the step's shapes; the
 single-dispatch device step (the in-step K4 and K5 included) on the card
 against the CPU for each BC-UMI rule, and K1 at its bench shape; the
-three whitelist screens on the card against the CPU. Every test
+three whitelist screens on the card against the CPU; the banded CIGAR
+DP against the host C++ routine on random, empty, N-bearing, widened,
+band-edge and 4,096-base segments, on a K562 genome-stage batch, and the
+genome stage and the clonotyper with it against their host route. Every
+test
 is marked `cuda` and skips without a card. The file imports neither JAX nor
 the JAX package, so on a machine with a card and no JAX it runs as
 
@@ -1151,3 +1155,182 @@ def test_screens_on_the_card_equal_the_cpu(dev, wl_737k, mode):
         for g, w in zip(got[name][0], want[name][0]):
             np.testing.assert_array_equal(g, w, err_msg=name)
         assert (got[name][0][0][:, 0] >= 0).sum() > 100
+
+
+# --------------------------------------------------------------------------
+# the banded CIGAR DP (csrc/banded_cigar.cu) against the host C++ routine
+
+def _ont_pair(rng, L, err=0.09):
+    """A random query of L bases and its target with ONT-like edits
+    (substitutions, deletions and insertions, err / 3 each)."""
+    q = rng.integers(0, 4, L).astype(np.int8)
+    t = []
+    for b in q:
+        r = rng.random()
+        if r < err / 3:
+            t.append((b + 1) % 4)
+        elif r < 2 * err / 3:
+            continue
+        elif r < err:
+            t += [b, int(rng.integers(0, 4))]
+        else:
+            t.append(b)
+    return q, np.asarray(t, np.int8)
+
+
+def _banded_case(kind, seed):
+    """(q_segs, t_segs) of one case kind."""
+    rng = np.random.default_rng(seed)
+    e = np.zeros(0, np.int8)
+    rand = lambda n, hi=4: rng.integers(0, hi, n).astype(np.int8)  # noqa
+    if kind == "ont":
+        return [list(x) for x in zip(*(
+            _ont_pair(rng, int(rng.integers(1, 900))) for _ in range(300)))]
+    if kind == "empty":
+        # empty query, empty target, both empty, beside ordinary pairs
+        return ([e, rand(37), e, rand(1), rand(200), e],
+                [rand(52), e, e, e, rand(190), rand(1)])
+    if kind == "n_bases":
+        pairs = [_ont_pair(rng, int(rng.integers(20, 400)))
+                 for _ in range(60)]
+        qs = [np.where(rng.random(len(q)) < 0.1, 4, q).astype(np.int8)
+              for q, _ in pairs]
+        ts = [np.where(rng.random(len(t)) < 0.1, 4, t).astype(np.int8)
+              for _, t in pairs]
+        return qs + [np.full(30, 4, np.int8)], ts + [np.full(30, 4, np.int8)]
+    if kind == "beyond_band":
+        # |lq - lt| past the band: the band widens to |lq - lt| + 16, to
+        # 2,353 columns a row at (1200, 40)
+        lens = [(300, 20), (20, 300), (700, 100), (100, 700), (1200, 40)]
+        return ([rand(a) for a, _ in lens], [rand(b) for _, b in lens])
+    if kind == "band_edge":
+        # unrelated sequences: paths that run along the band's edges; and
+        # the most oblique diagonals (lq = 1, lt = 4,096 and back). The
+        # widened band always holds the end cell (centre(lq) = lt), so no
+        # input reaches the host routine's outside-the-band exit
+        lens = [(int(rng.integers(1, 500)), int(rng.integers(1, 500)))
+                for _ in range(60)] + [(1, 4096), (4096, 1)]
+        return ([rand(a, 5) for a, _ in lens], [rand(b, 5) for _, b in lens])
+    if kind == "long":
+        pairs = [_ont_pair(rng, n) for n in (4096, 4000, 3000, 2048)]
+        pairs.append((rand(4096), rand(3900)))
+        return [list(x) for x in zip(*pairs)]
+    raise ValueError(kind)
+
+
+BANDED_CASES = ["ont", "empty", "n_bases", "beyond_band", "band_edge", "long"]
+
+
+def _assert_banded_equal(dev, qs, ts, band):
+    from nanoranger_torch.ops.banded import banded_align
+    from nanoranger_torch.runtime.native_lib import banded_align_batch
+    before = kernels.launches["banded"]
+    got = banded_align(qs, ts, band, dev)
+    assert kernels.launches["banded"] > before
+    want = banded_align_batch(qs, ts, band=band)
+    assert got[0] == want[0]
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == w.dtype == np.int32
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("band", [48, 160])
+@pytest.mark.parametrize("kind", BANDED_CASES)
+def test_banded_kernel_equals_the_host_routine(dev, kind, band):
+    qs, ts = _banded_case(kind, BANDED_CASES.index(kind) * 1000 + band)
+    _assert_banded_equal(dev, qs, ts, band)
+
+
+def test_banded_kernel_across_launches(dev, monkeypatch):
+    """A traceback cap that holds a few segments a launch: many launches
+    over one reused buffer, bands of 321 to 2,353 columns, the same
+    outputs."""
+    from nanoranger_torch.ops import banded
+    qs, ts = _banded_case("ont", 7)
+    q2, t2 = _banded_case("beyond_band", 8)
+    monkeypatch.setattr(banded, "TB_CAP", 1 << 20)
+    before = kernels.launches["banded"]
+    _assert_banded_equal(dev, qs + q2, ts + t2, 160)
+    assert kernels.launches["banded"] - before > 10
+
+
+@pytest.fixture(scope="module")
+def k562_genome(tmp_path_factory):
+    """The genome stage on the card on K562 subreads: (outdir, tag map, its
+    banded_align calls)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from chip_smoke import k562_genome_stage
+    out = str(tmp_path_factory.mktemp("k562_card"))
+    calls = []
+    tag_map = k562_genome_stage(torch.device("cuda"), out, calls)
+    return out, tag_map, calls
+
+
+def test_banded_kernel_on_a_genome_stage_batch(dev, k562_genome):
+    """Every exon segment of the first K562 genome-stage batch."""
+    _, _, calls = k562_genome
+    qs, ts, band = calls[0]
+    assert band == 160 and len(qs) > 300
+    _assert_banded_equal(dev, qs, ts, band)
+
+
+def test_genome_stage_on_the_card_equals_the_host_route(dev, k562_genome,
+                                                        tmp_path,
+                                                        monkeypatch):
+    """The tagged BAM, its .bai and _trns_ct.csv byte for byte, with the
+    banded DP on the card and on the host."""
+    from nanoranger_torch import chemistry, pipeline, trace
+    from nanoranger_torch.ops.banded import banded_align
+    out, tag_map, _ = k562_genome
+    host = str(tmp_path)
+    os.symlink(os.path.join(out, "s_deconcat.fastq.gz"),
+               os.path.join(host, "s_deconcat.fastq.gz"))
+    monkeypatch.setattr(pipeline, "banded_align",
+                        lambda q, t, band, device: banded_align(
+                            q, t, band, "cpu"))
+    with trace.run() as tr:
+        pipeline.genome_stage(chemistry.get("5p10XGEX"), host, "s",
+                              os.path.join(DATA, "RUNX1_RUNX1T1_ABL1_BCR.fa"),
+                              tag_map, dev, force=True)
+    assert tr.counters["banded.host_segments"] > 1000
+    assert tr.counters.get("banded.device_segments", 0) == 0
+    for f in ("s_genome_tagged.bam", "s_genome_tagged.bam.bai",
+              "s_trns_ct.csv"):
+        with open(os.path.join(out, f), "rb") as a, \
+                open(os.path.join(host, f), "rb") as b:
+            assert a.read() == b.read(), f
+
+
+def test_call_clonotypes_on_the_card_equals_the_host_route(dev, tmp_path,
+                                                           monkeypatch):
+    """The clone exports of the bundled slideseq reads, with the banded DP
+    on the card and on the host."""
+    import gzip
+
+    from chip_smoke import C_PANEL, SLIDESEQ, decon_subreads, \
+        slideseq_clonotypes
+    from nanoranger_torch import trace
+    from nanoranger_torch.ops.banded import banded_align
+    from nanoranger_torch.vdj import caller
+    sub_path, _ = decon_subreads(dev, "3pXCR_slideseq", SLIDESEQ, C_PANEL,
+                                 str(tmp_path))
+    (tmp_path / "card").mkdir()
+    (tmp_path / "host").mkdir()
+    with trace.run() as tr_card:
+        got = slideseq_clonotypes(dev, sub_path, str(tmp_path / "card"))
+    monkeypatch.setattr(caller, "banded_align",
+                        lambda q, t, band, device: banded_align(
+                            q, t, band, "cpu"))
+    with trace.run() as tr_host:
+        want = slideseq_clonotypes(dev, sub_path, str(tmp_path / "host"))
+    assert tr_card.counters["banded.device_segments"] == \
+        tr_host.counters["banded.host_segments"] > 500
+    assert tr_card.counters.get("banded.host_segments", 0) == 0
+    assert len(want[0]) >= 3
+    for g, w in zip(got, want):
+        assert g.equals(w)
+    for name in ("s_clones.txt.gz", "s_cloneID.txt.gz"):
+        with gzip.open(tmp_path / "card" / name, "rb") as a, \
+                gzip.open(tmp_path / "host" / name, "rb") as b:
+            assert a.read() == b.read(), name
